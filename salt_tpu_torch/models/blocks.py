@@ -1,0 +1,141 @@
+"""Building blocks of the flagship U-Net, as torch ``nn.Module``s in NCHW.
+
+Counterparts of ``salt_tpu/models/blocks.py``. Submodule names copy the
+flax scope names (``Conv_0``, ``BatchNorm_0``, ``ConvBnRelu_0``,
+``ChannelSELayer_0``, ``Dense_0``, ...) so ``models.convert`` maps a flax
+checkpoint path to a torch state_dict key by joining names; modules whose
+name starts with ``Dense`` hold flax ``Dense`` kernels.
+
+Reference-parity modes, as in the JAX package:
+- ``pad_mode="reference"``: replication pad kh-1 rows on top and kw-1
+  columns on the right, then a VALID conv;
+- ``upsample_mode="align_corners"``: bilinear with align_corners=True,
+  applied as two interpolation matrices like the JAX package.
+The defaults are centred SAME padding and half-pixel bilinear
+(``jax.image.resize`` "linear" == ``F.interpolate(align_corners=False)``
+for these integer upsampling factors, edges included; tested).
+
+BatchNorm: eps 1e-5 (flax momentum 0.9 == torch momentum 0.1).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_BN_EPS = 1e-5
+_BN_MOMENTUM = 0.1
+
+
+def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Two-tap interpolation matrix [n_out, n_in], src = i * (n_in - 1) /
+    (n_out - 1), weights computed in float64 as the JAX package does (the
+    float32 source coordinate of ``F.interpolate`` is off by up to ~1e-5
+    at these sizes)."""
+    if n_in == 1 or n_out == 1:
+        return np.ones((n_out, n_in), np.float32) / n_in
+    src = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    lo = np.floor(src).astype(np.int64)
+    frac = (src - lo).astype(np.float32)
+    hi = np.minimum(lo + 1, n_in - 1)
+    w = np.zeros((n_out, n_in), np.float32)
+    w[np.arange(n_out), lo] += 1.0 - frac
+    w[np.arange(n_out), hi] += frac
+    return w
+
+
+def upsample2x(x: torch.Tensor, factor: int = 2,
+               mode: str = "half_pixel") -> torch.Tensor:
+    """Bilinear NCHW upsample by an integer ``factor``."""
+    h, w = x.shape[-2:]
+    if mode == "align_corners":
+        wh, ww = (torch.from_numpy(_align_corners_matrix(n, n * factor))
+                  .to(x.device, x.dtype) for n in (h, w))
+        y = torch.einsum("oh,bchw->bcow", wh, x)
+        return torch.einsum("pw,bcow->bcop", ww, y)
+    return F.interpolate(x, size=(h * factor, w * factor), mode="bilinear",
+                         align_corners=False)
+
+
+def reference_pad(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """kh-1 replicated rows on TOP, kw-1 columns on the RIGHT."""
+    return F.pad(x, (0, kw - 1, kh - 1, 0), mode="replicate")
+
+
+def batch_norm(features: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(features, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+
+
+class ConvBnRelu(nn.Module):
+    """3x3 conv (no bias, stride 1) -> BN -> ReLU."""
+
+    def __init__(self, in_channels: int, features: int,
+                 pad_mode: str = "same"):
+        super().__init__()
+        self.pad_mode = pad_mode
+        self.Conv_0 = nn.Conv2d(in_channels, features, 3,
+                                padding=0 if pad_mode == "reference" else 1,
+                                bias=False)
+        self.BatchNorm_0 = batch_norm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad_mode == "reference":
+            x = reference_pad(x, 3, 3)
+        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class ChannelSELayer(nn.Module):
+    """Squeeze-and-excitation over channels (reduction 16)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        hidden = max(channels // 16, 1)
+        self.Dense_0 = nn.Linear(channels, hidden)
+        self.Dense_1 = nn.Linear(hidden, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.mean(dim=(2, 3))
+        y = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(y))))
+        return x * y[:, :, None, None]
+
+
+class SpatialSELayer(nn.Module):
+    """Squeeze-and-excitation over space. The JAX package's ``Dense(1)``
+    over the channel axis is a 1x1 conv with bias."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.Dense_0 = nn.Conv2d(channels, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.Dense_0(x))
+
+
+class DecoderBlock(nn.Module):
+    """Upsample -> concat skip -> 2x ConvBnRelu -> relu(cSE + sSE).
+
+    The JAX package's sliced concat (``SlicedConcatConvBnRelu``) is the
+    same math with the same kernel parameter; the port concatenates."""
+
+    def __init__(self, in_channels: int, skip_channels: int,
+                 middle_features: int, features: int, pad_mode: str = "same",
+                 upsample_mode: str = "half_pixel"):
+        super().__init__()
+        self.upsample_mode = upsample_mode
+        self.ConvBnRelu_0 = ConvBnRelu(in_channels + skip_channels,
+                                       middle_features, pad_mode=pad_mode)
+        self.ConvBnRelu_1 = ConvBnRelu(middle_features, features,
+                                       pad_mode=pad_mode)
+        self.ChannelSELayer_0 = ChannelSELayer(features)
+        self.SpatialSELayer_0 = SpatialSELayer(features)
+
+    def forward(self, x: torch.Tensor,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = upsample2x(x, mode=self.upsample_mode)
+        if skip is not None:
+            x = torch.cat([x, skip.to(x.dtype)], dim=1)
+        x = self.ConvBnRelu_1(self.ConvBnRelu_0(x))
+        return F.relu(self.ChannelSELayer_0(x) + self.SpatialSELayer_0(x))

@@ -1,0 +1,89 @@
+"""Architecture registry (counterpart of ``salt_tpu/models/registry.py``
+``build_model`` :176-197), and a seeded initializer.
+
+The port builds ``UNetResNet`` only; every other architecture the JAX
+package registers raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from salt_tpu_torch.core.config import ModelConfig
+
+_MODE_CHOICES = {
+    # string knobs are matched with == in the blocks; a typo silently
+    # falling back to the default would defeat the reference-parity
+    # modes, so validate at the single build choke point
+    "conv_pad_mode": ("same", "reference"),
+    "upsample_mode": ("half_pixel", "align_corners"),
+    "hypercolumn_impl": ("sum", "concat"),
+    "decoder_impl": ("sum", "concat"),
+    "pallas_conv": ("off", "on", "auto"),
+}
+
+#: architectures of the JAX registry the port does not build yet
+NOT_PORTED = ("SaltUNet", "SaltLinkNet", "UNetSeResNet", "UNetSeResNetXt",
+              "UNetDenseNet", "UNetResNetWithDepth", "LargeKernelMatters",
+              "PSPNet", "StackingFCN", "StackingFCNWithDepth",
+              "EmptinessClassifier")
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_model(cfg: ModelConfig) -> nn.Module:
+    """An fp32 module in eval mode; ``set_compute_dtype`` casts it."""
+    for field, choices in _MODE_CHOICES.items():
+        val = getattr(cfg, field, choices[0])
+        if val not in choices:
+            raise ValueError(f"model.{field}={val!r}: expected one of "
+                             f"{choices}")
+    if cfg.architecture in NOT_PORTED:
+        raise NotImplementedError(
+            f"model.architecture={cfg.architecture!r} is not ported yet "
+            "(ROADMAP.md Queue A item 13, other architectures)")
+    if cfg.architecture != "UNetResNet":
+        raise KeyError(f"unknown architecture {cfg.architecture!r}")
+    if cfg.quant_bits:
+        raise NotImplementedError("model.quant_bits: int8 serving is not "
+                                  "ported yet (ROADMAP.md Queue A item 15)")
+    if cfg.pallas_conv == "on":
+        raise NotImplementedError(
+            "model.pallas_conv='on': the pair-packed conv kernel is not "
+            "ported yet (ROADMAP.md Queue B row 3); 'auto' and 'off' use "
+            "the plain convolutions")
+    from salt_tpu_torch.models.unet import UNetResNet
+    model = UNetResNet(encoder_depth=cfg.encoder_depth or 34,
+                       num_classes=cfg.num_classes,
+                       use_hypercolumn=cfg.use_hypercolumn, pool0=cfg.pool0,
+                       pad_mode=cfg.conv_pad_mode,
+                       upsample_mode=cfg.upsample_mode)
+    return model.eval()
+
+
+@torch.no_grad()
+def init_seeded(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter and BN statistic from ``numpy`` seed ``seed``:
+    conv/linear weights N(0, 1/fan_in), biases 0.05 N(0, 1), BN scale and
+    variance U(0.8, 1.2), BN shift and mean 0.1 N(0, 1)."""
+    rng = np.random.RandomState(seed)
+
+    def fill(t: torch.Tensor, values: np.ndarray):
+        t.copy_(torch.from_numpy(values.astype(np.float32)))
+
+    for module in model.modules():
+        if isinstance(module, (nn.Conv2d, nn.Linear)):
+            w = module.weight
+            fan_in = int(np.prod(w.shape[1:]))
+            fill(w, rng.randn(*w.shape) / np.sqrt(fan_in))
+            if module.bias is not None:
+                fill(module.bias, 0.05 * rng.randn(*module.bias.shape))
+        elif isinstance(module, nn.BatchNorm2d):
+            c = module.num_features
+            fill(module.weight, 0.8 + 0.4 * rng.rand(c))
+            fill(module.bias, 0.1 * rng.randn(c))
+            fill(module.running_mean, 0.1 * rng.randn(c))
+            fill(module.running_var, 0.8 + 0.4 * rng.rand(c))
+    return model

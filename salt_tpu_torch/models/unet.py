@@ -1,0 +1,87 @@
+"""The flagship U-Net: ResNet encoder -> center -> five scSE decoder
+blocks -> hypercolumn head (counterpart of ``salt_tpu/models/unet.py``,
+``UNetTrunk`` :25-154 for the resnet kind and ``UNetResNet`` :157-170).
+
+Shapes at a 128x128 input: enc2..enc5 at 64, 32, 16, 8; the center
+(2x ConvBnRelu, then 2x2 average pool) at 4; dec5..dec1 at 8..128 (dec1
+takes no skip); the hypercolumn concatenates dec1 with dec2..dec5
+upsampled x2, x4, x8, x16 into ``final_conv``, then a 1x1 ``head`` with
+bias.
+
+Precision: the trunk computes in ``compute_dtype`` (the config's
+``training.dtype``); the head runs in fp32 on an fp32 copy of its input
+and the logits come out fp32, as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from salt_tpu_torch.models.blocks import ConvBnRelu, DecoderBlock, upsample2x
+from salt_tpu_torch.models.encoders import RESNET_WIDTHS, ResNetEncoder
+
+
+class UNetTrunk(nn.Module):
+    def __init__(self, encoder_depth: int = 34, num_classes: int = 2,
+                 use_hypercolumn: bool = True, pool0: bool = False,
+                 bottom_channels: int = 512, pad_mode: str = "same",
+                 upsample_mode: str = "half_pixel"):
+        super().__init__()
+        b = bottom_channels
+        c2, c3, c4, c5 = RESNET_WIDTHS
+        center = b // 2
+        self.use_hypercolumn = use_hypercolumn
+        self.upsample_mode = upsample_mode
+        self.compute_dtype = torch.float32
+        kw = dict(pad_mode=pad_mode)
+        self.encoder = ResNetEncoder(encoder_depth, pool0)
+        self.center_conv1 = ConvBnRelu(c5, b, **kw)
+        self.center_conv2 = ConvBnRelu(b, center, **kw)
+        dkw = dict(pad_mode=pad_mode, upsample_mode=upsample_mode)
+        self.dec5 = DecoderBlock(center, c5, b, b // 8, **dkw)
+        self.dec4 = DecoderBlock(b // 8, c4, b // 2, b // 8, **dkw)
+        self.dec3 = DecoderBlock(b // 8, c3, b // 4, b // 8, **dkw)
+        self.dec2 = DecoderBlock(b // 8, c2, b // 8, b // 8, **dkw)
+        self.dec1 = DecoderBlock(b // 8, 0, b // 16, b // 8, **dkw)
+        head_in = 5 * (b // 8) if use_hypercolumn else b // 8
+        self.final_conv = ConvBnRelu(head_in, b // 8, **kw)
+        self.head = nn.Conv2d(b // 8, num_classes, 1)
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "UNetTrunk":
+        """Cast every module but the fp32 head to ``dtype``."""
+        self.compute_dtype = dtype
+        for name, child in self.named_children():
+            child.to(torch.float32 if name == "head" else dtype)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, 3, H, W] -> fp32 logits [B, num_classes, H, W]."""
+        x = x.to(self.compute_dtype)
+        enc2, enc3, enc4, enc5 = self.encoder(x)
+        center = self.center_conv2(self.center_conv1(enc5))
+        center = F.avg_pool2d(center, 2, stride=2)
+        dec5 = self.dec5(center, enc5)
+        dec4 = self.dec4(dec5, enc4)
+        dec3 = self.dec3(dec4, enc3)
+        dec2 = self.dec2(dec3, enc2)
+        dec1 = self.dec1(dec2)
+        if self.use_hypercolumn:
+            um = self.upsample_mode
+            dec1 = torch.cat([dec1,
+                              upsample2x(dec2, 2, um),
+                              upsample2x(dec3, 4, um),
+                              upsample2x(dec4, 8, um),
+                              upsample2x(dec5, 16, um)], dim=1)
+        y = self.final_conv(dec1)
+        return self.head(y.float())
+
+
+def UNetResNet(encoder_depth: int = 34, num_classes: int = 2,
+               use_hypercolumn: bool = True, pool0: bool = False,
+               pad_mode: str = "same",
+               upsample_mode: str = "half_pixel") -> UNetTrunk:
+    return UNetTrunk(encoder_depth=encoder_depth, num_classes=num_classes,
+                     use_hypercolumn=use_hypercolumn, pool0=pool0,
+                     bottom_channels=512, pad_mode=pad_mode,
+                     upsample_mode=upsample_mode)

@@ -1,0 +1,79 @@
+"""The port stands alone and never falls back to the CPU silently.
+
+(g) importing every ``salt_tpu_torch`` module loads no ``jax``, ``flax``
+or ``salt_tpu``; (h) every entry point called without ``device`` raises
+where CUDA is absent."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax_flax_or_salt_tpu():
+    code = r"""
+import importlib, pkgutil, sys
+import salt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(salt_tpu_torch.__path__,
+                                               "salt_tpu_torch.")]
+assert "salt_tpu_torch.pipeline.serving" in names, names
+assert "salt_tpu_torch.ops.preprocess_kernel" in names, names
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "salt_tpu") or m.startswith(("jax.", "flax.", "salt_tpu.")))
+assert not bad, bad
+print(len(names))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_runner_defaults_to_cuda_and_raises(no_cuda):
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.train.steps import SegmentationRunner
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SegmentationRunner(default_config())
+    assert SegmentationRunner(default_config(), device="cpu").device.type == "cpu"
+
+
+def test_serve_defaults_to_cuda_and_raises(no_cuda, tmp_path):
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.pipeline.serving import serve
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve(default_config(), str(tmp_path / "ckpt.npz"), str(tmp_path),
+              str(tmp_path / "s.csv"))
+
+
+def test_cli_defaults_to_cuda_and_raises(no_cuda, tmp_path):
+    from salt_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["serve", "--checkpoint", str(tmp_path / "ckpt.npz"),
+                  "--images-dir", str(tmp_path),
+                  "--out", str(tmp_path / "s.csv")])
+
+
+def test_kernel_wrapper_refuses_what_it_cannot_launch():
+    """Inputs the CUDA kernel does not take raise before any launch; on a
+    CPU tensor the wrapper is its plain version."""
+    from salt_tpu_torch.ops.preprocess_kernel import \
+        preprocess_inference_kernel
+    x = torch.zeros(2, 101, 101, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        preprocess_inference_kernel(x)
+    out = preprocess_inference_kernel(torch.zeros(0, 101, 101, dtype=torch.uint8))
+    assert out.shape == (0, 128, 128, 3)
+    assert np.isfinite(preprocess_inference_kernel(
+        torch.full((1, 101, 101), 255, dtype=torch.uint8)).float().numpy()).all()
