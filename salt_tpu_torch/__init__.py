@@ -4,15 +4,21 @@ H100 (Hopper, sm_90a).
 The layout mirrors ``salt_tpu`` so each module's counterpart is found
 under the same name:
 
-- ``salt_tpu_torch.core``      config tree (own copy), logging, flat-npz
-                               checkpoints, device selection
-- ``salt_tpu_torch.data``      PNG pack decoding
+- ``salt_tpu_torch.core``      config tree (own copy), logging, the
+                               experiment store and flat-npz checkpoints,
+                               device selection
+- ``salt_tpu_torch.data``      PNG pack decoding, synthetic data, bundles,
+                               K-fold split, batch feed
 - ``salt_tpu_torch.ops``       preprocessing (plain torch + the CUDA kernel),
-                               TTA, RLE codec, kernel build
+                               augmentation, the bitonic sort (plain torch +
+                               the CUDA kernel), TTA, RLE codec, kernel build
+- ``salt_tpu_torch.losses``    the Lovász hinge / softmax, stable BCE
+- ``salt_tpu_torch.metrics``   IoU / IOUT
 - ``salt_tpu_torch.models``    UNetResNet (ResNet 18/34 encoder, scSE decoder,
                                hypercolumn head) and the flax-checkpoint bridge
-- ``salt_tpu_torch.train``     the inference half of ``SegmentationRunner``
-- ``salt_tpu_torch.pipeline``  the ``serve`` entry point
+- ``salt_tpu_torch.train``     ``SegmentationRunner`` (train, eval and predict
+                               steps), train state, callbacks, the fit loop
+- ``salt_tpu_torch.pipeline``  the ``train`` and ``serve`` entry points
 
 The package imports torch, numpy, pandas, PIL and yaml, never jax, flax or
 anything of ``salt_tpu``. Entry points run on ``device="cuda"`` unless the

@@ -1,13 +1,21 @@
-"""Command line of the port (the ``serve`` command of ``salt_tpu/cli.py``).
+"""Command line of the port (the ``train`` and ``serve`` commands of
+``salt_tpu/cli.py``).
 
 Usage:
+    python -m salt_tpu_torch.cli train [--synthetic N] \
+        [--synthetic-difficulty easy|hard|real] [--epochs E] [--resume] \
+        [--dev-mode] [--config cfg.yaml] [--set section.field=v] \
+        [--device cuda|cpu]
     python -m salt_tpu_torch.cli serve --checkpoint EXP_DIR_OR_NPZ \
         --images-dir DIR [--out submission.csv] [--no-tta] \
         [--probs-out probs.npz] [--config cfg.yaml] [--set section.field=v] \
         [--device cuda|cpu]
 
-It runs on the CUDA card by default and fails where there is none,
-unless ``--device cpu`` is given.
+``train`` fits the configured network on the first fold of the data
+(``paths.metadata_filepath``, or N generated images with
+``--synthetic``) into ``paths.experiment_dir``. Both commands run on the
+CUDA card by default and fail where there is none, unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ def _parse_overrides(items):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="salt_tpu_torch")
-    parser.add_argument("command", choices=["serve"])
+    parser.add_argument("command", choices=["train", "serve"])
     parser.add_argument("--config", default=None,
                         help="YAML config (native nested or reference-style "
                              "'parameters:' layout); falls back to "
@@ -60,16 +68,53 @@ def main(argv=None):
                         help="plain single-pass inference")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--synthetic", type=int, default=0, metavar="N",
+                        help="train: N generated images instead of the "
+                             "data dirs")
+    parser.add_argument("--synthetic-difficulty", default="easy",
+                        choices=["easy", "hard", "real"])
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="train: continue from the 'last' checkpoint "
+                             "(optimizer state and epoch)")
+    parser.add_argument("--dev-mode", action="store_true")
     args = parser.parse_args(argv)
 
     init_logger()
     overrides = _parse_overrides(args.set)
     cfg = load_config(args.config, overrides)
+    if args.command == "train":
+        return _train(cfg, args)
     from salt_tpu_torch.pipeline.serving import serve
     cfg.postpro.use_tta = not args.no_tta
     print(serve(cfg, args.checkpoint, args.images_dir, args.out,
                 args.probs_out, user_set=tuple(overrides),
                 device=args.device))
+    return 0
+
+
+def _train(cfg, args) -> int:
+    from salt_tpu_torch.core.device import resolve_device
+    from salt_tpu_torch.core.experiment import Experiment
+    from salt_tpu_torch.pipeline import api
+    device = resolve_device(args.device)
+    if args.dev_mode:
+        cfg.execution.dev_mode = True
+    if args.resume:
+        cfg.execution.resume = True
+    if args.epochs is not None:
+        cfg.training.epochs = args.epochs
+    if args.synthetic:
+        from salt_tpu_torch.data.bundle import synthetic_bundle
+        bundle = synthetic_bundle(args.synthetic, seed=cfg.execution.seed,
+                                  difficulty=args.synthetic_difficulty)
+    else:
+        from salt_tpu_torch.data.bundle import train_test_bundles
+        bundle, _ = train_test_bundles(cfg)
+    experiment = Experiment(cfg.paths.experiment_dir,
+                            overwrite=cfg.execution.overwrite,
+                            clone_from=cfg.execution.clone_experiment_dir_from)
+    api.train(cfg, experiment, bundle, device=device)
     return 0
 
 

@@ -36,9 +36,11 @@ def _native_lib():
     return _LIB
 
 
-def pack_pngs(paths: Sequence[str], h: int, w: int) -> Optional[np.ndarray]:
-    """Decode ``paths`` into a packed [N, h, w] uint8 array of raw
-    grayscale (channel 0) on all cores, or None."""
+def pack_pngs(paths: Sequence[str], h: int, w: int,
+              mask_threshold: int = -1) -> Optional[np.ndarray]:
+    """Decode ``paths`` into a packed [N, h, w] uint8 array on all cores,
+    or None. ``mask_threshold``: -1 = raw grayscale (channel 0); >= 0 =
+    binarize at the threshold (masks)."""
     lib = _native_lib()
     if lib is None or not paths:
         return None
@@ -46,7 +48,7 @@ def pack_pngs(paths: Sequence[str], h: int, w: int) -> Optional[np.ndarray]:
     out = np.empty((len(paths), h, w), dtype=np.uint8)
     rc = lib.png_pack(blob, len(paths),
                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                      h, w, -1, 0)
+                      h, w, mask_threshold, 0)
     if rc != 0:
         return None
     return out

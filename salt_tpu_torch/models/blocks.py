@@ -15,7 +15,10 @@ The defaults are centred SAME padding and half-pixel bilinear
 (``jax.image.resize`` "linear" == ``F.interpolate(align_corners=False)``
 for these integer upsampling factors, edges included; tested).
 
-BatchNorm: eps 1e-5 (flax momentum 0.9 == torch momentum 0.1).
+BatchNorm: eps 1e-5 (flax momentum 0.9 == torch momentum 0.1). In
+training it normalises with the batch's biased variance and, as flax
+does, moves ``running_var`` towards that biased variance too
+(:class:`BatchNorm2d`; ``nn.BatchNorm2d`` uses the unbiased one there).
 """
 from __future__ import annotations
 
@@ -65,8 +68,33 @@ def reference_pad(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     return F.pad(x, (0, kw - 1, kh - 1, 0), mode="replicate")
 
 
-def batch_norm(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step updates ``running_var``
+    with the biased batch variance, as flax's ``BatchNorm`` does.
+
+    The fused kernel moves the buffer by ``m * var * n / (n - 1)`` (the
+    unbiased variance of n values per channel); the biased variance it
+    normalised with comes back from its ``1 / sqrt(var + eps)``, and
+    ``m * var / (n - 1)`` is taken off again. The buffer is changed
+    through ``.data``: autograd saved it, but the training backward does
+    not read it. ``num_batches_tracked`` stays 0 (the momentum is fixed,
+    so nothing reads it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, _, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            var = invstd.pow(-2).sub_(self.eps)
+            self.running_var.data.sub_(var, alpha=self.momentum / (n - 1))
+        return y
+
+
+def batch_norm(features: int) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
 
 class ConvBnRelu(nn.Module):

@@ -1,5 +1,7 @@
 """Architecture registry (counterpart of ``salt_tpu/models/registry.py``
-``build_model`` :176-197), and a seeded initializer.
+``build_model`` :176-197), and two seeded initializers: ``init_seeded``
+(random weights and BN statistics, for the parity and serve checks) and
+``init_flax_like`` (flax's default initializers, the start of training).
 
 The port builds ``UNetResNet`` only; every other architecture the JAX
 package registers raises ``NotImplementedError`` naming the ROADMAP item
@@ -59,7 +61,8 @@ def build_model(cfg: ModelConfig) -> nn.Module:
                        num_classes=cfg.num_classes,
                        use_hypercolumn=cfg.use_hypercolumn, pool0=cfg.pool0,
                        pad_mode=cfg.conv_pad_mode,
-                       upsample_mode=cfg.upsample_mode)
+                       upsample_mode=cfg.upsample_mode,
+                       dropout_2d=cfg.dropout_2d)
     return model.eval()
 
 
@@ -86,4 +89,26 @@ def init_seeded(model: nn.Module, seed: int) -> nn.Module:
             fill(module.bias, 0.1 * rng.randn(c))
             fill(module.running_mean, 0.1 * rng.randn(c))
             fill(module.running_var, 0.8 + 0.4 * rng.rand(c))
+    return model
+
+
+@torch.no_grad()
+def init_flax_like(model: nn.Module, seed: int) -> nn.Module:
+    """Flax's default initialization, drawn from ``torch.Generator`` seed
+    ``seed``: conv and dense kernels ``lecun_normal`` (a normal truncated
+    at +-2 std, std sqrt(1 / fan_in) / 0.8796), biases 0, BN scale 1,
+    shift 0, mean 0, variance 1. The distribution of the JAX package's
+    init, not its bits."""
+    g = torch.Generator().manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, (nn.Conv2d, nn.Linear)):
+            w = module.weight
+            fan_in = int(np.prod(w.shape[1:]))
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=g)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.BatchNorm2d):
+            module.reset_parameters()
     return model

@@ -8,11 +8,22 @@ takes no skip); the hypercolumn concatenates dec1 with dec2..dec5
 upsampled x2, x4, x8, x16 into ``final_conv``, then a 1x1 ``head`` with
 bias.
 
-Precision: the trunk computes in ``compute_dtype`` (the config's
-``training.dtype``); the head runs in fp32 on an fp32 copy of its input
-and the logits come out fp32, as in the JAX package.
+Precision, two modes; the head runs in fp32 on an fp32 copy of its
+input and the logits come out fp32 in both, as in the JAX package:
+- serving (:meth:`UNetTrunk.set_compute_dtype`): the trunk's weights are
+  cast to the config's ``training.dtype`` and it computes in it;
+- training (:meth:`UNetTrunk.set_training_precision`): every parameter
+  stays fp32, as flax keeps them (no module sets ``param_dtype``), and
+  the trunk computes in ``training.dtype`` under ``torch.autocast``, so
+  the optimizer never updates a bf16 copy.
+
+``dropout_2d`` is channel dropout on enc5 in train mode (flax
+``nn.Dropout(broadcast_dims=(1, 2))``), its mask drawn from the
+generator passed to ``forward``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,9 +37,11 @@ class UNetTrunk(nn.Module):
     def __init__(self, encoder_depth: int = 34, num_classes: int = 2,
                  use_hypercolumn: bool = True, pool0: bool = False,
                  bottom_channels: int = 512, pad_mode: str = "same",
-                 upsample_mode: str = "half_pixel"):
+                 upsample_mode: str = "half_pixel", dropout_2d: float = 0.0):
         super().__init__()
         b = bottom_channels
+        self.dropout_2d = dropout_2d
+        self.autocast_dtype: Optional[torch.dtype] = None
         c2, c3, c4, c5 = RESNET_WIDTHS
         center = b // 2
         self.use_hypercolumn = use_hypercolumn
@@ -49,16 +62,44 @@ class UNetTrunk(nn.Module):
         self.head = nn.Conv2d(b // 8, num_classes, 1)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "UNetTrunk":
-        """Cast every module but the fp32 head to ``dtype``."""
+        """Serving precision: cast every module but the fp32 head to
+        ``dtype``."""
         self.compute_dtype = dtype
+        self.autocast_dtype = None
         for name, child in self.named_children():
             child.to(torch.float32 if name == "head" else dtype)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def set_training_precision(self, dtype: torch.dtype) -> "UNetTrunk":
+        """Training precision: fp32 parameters, the trunk computing in
+        ``dtype`` under autocast (plain fp32 when ``dtype`` is fp32)."""
+        self.set_compute_dtype(torch.float32)
+        if dtype != torch.float32:
+            self.autocast_dtype = dtype
+        return self
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, 3, H, W] -> fp32 logits [B, num_classes, H, W]."""
-        x = x.to(self.compute_dtype)
+        if self.autocast_dtype is None:
+            y = self._trunk(x.to(self.compute_dtype), generator)
+        else:
+            with torch.autocast(x.device.type, dtype=self.autocast_dtype):
+                y = self._trunk(x.to(torch.float32), generator)
+        return self.head(y.to(torch.promote_types(y.dtype, torch.float32)))
+
+    def _channel_dropout(self, x: torch.Tensor,
+                         generator: Optional[torch.Generator]) -> torch.Tensor:
+        keep = 1.0 - self.dropout_2d
+        mask = torch.rand((*x.shape[:2], 1, 1), generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+    def _trunk(self, x: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
         enc2, enc3, enc4, enc5 = self.encoder(x)
+        if self.dropout_2d > 0 and self.training:
+            enc5 = self._channel_dropout(enc5, generator)
         center = self.center_conv2(self.center_conv1(enc5))
         center = F.avg_pool2d(center, 2, stride=2)
         dec5 = self.dec5(center, enc5)
@@ -73,15 +114,14 @@ class UNetTrunk(nn.Module):
                               upsample2x(dec3, 4, um),
                               upsample2x(dec4, 8, um),
                               upsample2x(dec5, 16, um)], dim=1)
-        y = self.final_conv(dec1)
-        return self.head(y.float())
+        return self.final_conv(dec1)
 
 
 def UNetResNet(encoder_depth: int = 34, num_classes: int = 2,
                use_hypercolumn: bool = True, pool0: bool = False,
-               pad_mode: str = "same",
-               upsample_mode: str = "half_pixel") -> UNetTrunk:
+               pad_mode: str = "same", upsample_mode: str = "half_pixel",
+               dropout_2d: float = 0.0) -> UNetTrunk:
     return UNetTrunk(encoder_depth=encoder_depth, num_classes=num_classes,
                      use_hypercolumn=use_hypercolumn, pool0=pool0,
                      bottom_channels=512, pad_mode=pad_mode,
-                     upsample_mode=upsample_mode)
+                     upsample_mode=upsample_mode, dropout_2d=dropout_2d)

@@ -1,5 +1,5 @@
-"""Inference preprocessing as plain torch: pad / resize / normalize /
-depth channels.
+"""Preprocessing as plain torch: pad / resize / normalize / depth
+channels / one-hot targets.
 
 Counterpart of ``salt_tpu/ops/preprocess.py`` (:39-140), with the same
 conventions:
@@ -73,16 +73,34 @@ def crop_to_target(x: torch.Tensor, target_hw: Tuple[int, int]
     return x[..., top:h - bottom, left:w - right]
 
 
+def pad_fixed(x: torch.Tensor, pad: Tuple[int, int], method: str = "edge"
+              ) -> torch.Tensor:
+    """Symmetric fixed pad of [..., H, W]: ``pad[0]`` rows top and bottom,
+    ``pad[1]`` columns left and right (the training path's 102 -> 128)."""
+    h_pad, w_pad = pad
+    return _pad_hw(x, h_pad, h_pad, w_pad, w_pad, method)
+
+
+def one_hot_target(mask: torch.Tensor) -> torch.Tensor:
+    """Binary [..., H, W] mask -> fp32 [..., H, W, 2] one-hot planes
+    (background, salt)."""
+    fg = (mask > 0).to(torch.float32)
+    return torch.stack([1.0 - fg, fg], dim=-1)
+
+
 def resize_hw(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of the trailing two axes with the semantics of
     ``jax.image.resize(method="linear")``: half-pixel centres, a triangle
     filter widened by the scale when shrinking, out-of-range taps
     dropped and the weights renormalized — torch's ``antialias=True``
-    bilinear."""
+    bilinear. Where no axis shrinks the filter is the plain two-tap one,
+    and plain bilinear computes it with less rounding (nearer the JAX
+    result: 1e-6 against 4e-6 on a 5 -> 101 upsample of values ~10)."""
     lead = x.shape[:-2]
     planes = x.reshape(-1, 1, *x.shape[-2:])
+    shrinks = any(t < s for t, s in zip(target_hw, x.shape[-2:]))
     out = F.interpolate(planes, size=tuple(target_hw), mode="bilinear",
-                        align_corners=False, antialias=True)
+                        align_corners=False, antialias=shrinks)
     return out.reshape(*lead, *out.shape[-2:])
 
 

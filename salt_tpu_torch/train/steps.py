@@ -1,21 +1,33 @@
-"""The inference half of ``SegmentationRunner`` (counterpart of
-``salt_tpu/train/steps.py``: ``_infer_inputs`` :150-169, ``predict_step``
-:229-243, ``predict_tta_step`` :279-309, ``predict_dataset`` :337-381).
+"""``SegmentationRunner``: the train, eval and predict steps of one
+network (counterpart of ``salt_tpu/train/steps.py``: ``_train_inputs``
+:125-148, ``_infer_inputs`` :150-169, ``train_step`` :198-223,
+``predict_step`` :229-243, ``val_loss_step`` :245-257, ``metrics_step``
+:259-277, ``predict_tta_step`` :279-309, ``predict_dataset`` :337-381).
 
 Where the JAX package compiles one graph per step, the port runs the
-same steps eagerly on ``device``: uint8 images in, preprocess (the CUDA
-kernel for the production geometry on the card), forward, fp32 sigmoid,
-TTA inverse + aggregate in 128x128 network space, then crop (or resize)
-back to 101x101. ``lax.scan`` over batches becomes a Python loop over
-batches on the device.
+same steps eagerly on ``device``.
 
-Models are ``nn.Module``s in eval mode, cast to ``training.dtype`` (the
-fp32 head aside), in channels_last memory, placed on ``device`` once by
-:meth:`SegmentationRunner.init_model` / :meth:`restore`.
+- Inference: uint8 images in, preprocess (the CUDA kernel for the
+  production geometry on the card), forward, fp32 sigmoid, TTA inverse +
+  aggregate in 128x128 network space, then crop (or resize) back to
+  101x101. ``lax.scan`` over batches becomes a Python loop.
+- Training: augmentation drawn from a ``torch.Generator`` on the device
+  and applied, resize 102, pad 13, normalize + depth channels (plain ops
+  on every device: the JAX package has no kernel there), forward, the
+  per-image Lovász hinge over NHWC logits (the sort kernel on the card),
+  backward, Adam. ``_train_inputs`` and :meth:`update` are the two halves
+  of :meth:`train_step`, so each can be held against JAX on its own.
+
+Serving models are ``nn.Module``s in eval mode, cast to
+``training.dtype`` (the fp32 head aside), in channels_last memory,
+placed on ``device`` once by :meth:`init_model` / :meth:`restore`. A
+model being trained keeps fp32 parameters and computes in
+``training.dtype`` under autocast (:meth:`train_state`).
 """
 from __future__ import annotations
 
-from typing import Union
+from functools import cached_property
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -24,14 +36,26 @@ from torch import nn
 from salt_tpu_torch.core.config import Config
 from salt_tpu_torch.core.device import resolve_device
 from salt_tpu_torch.core.experiment import load_flat_npz
+from salt_tpu_torch.data.pipeline import to_device
+from salt_tpu_torch.losses.api import get_loss_fn
 from salt_tpu_torch.models.convert import load_flax_flat
-from salt_tpu_torch.models.registry import DTYPES, build_model, init_seeded
+from salt_tpu_torch.models.registry import (DTYPES, build_model,
+                                            init_flax_like, init_seeded)
+from salt_tpu_torch.ops.augment import (AugmentParams, apply_augment,
+                                        draw_augment_params)
 from salt_tpu_torch.ops.preprocess import (add_depth_channels, crop_to_target,
-                                           normalize_gray, pad_to_divisor,
+                                           normalize_gray, one_hot_target,
+                                           pad_fixed, pad_to_divisor,
                                            resize_hw)
 from salt_tpu_torch.ops.preprocess_kernel import preprocess_inference_kernel
 from salt_tpu_torch.ops.tta import (aggregate, build_tta_specs,
                                     tta_inverse_transform, tta_transform)
+from salt_tpu_torch.train.state import TrainState, make_optimizer
+
+#: validation threshold sweep grid (reference: callbacks.py:503)
+SWEEP_THRESHOLDS = np.linspace(0.5, 0.3, 21)
+#: the IOUT thresholds 0.50:0.05:0.95 as ``metrics_step`` builds them
+_IOUT_GRID = np.arange(0.5, 1.0, 0.05)
 
 
 class SegmentationRunner:
@@ -42,7 +66,9 @@ class SegmentationRunner:
         self.dtype = DTYPES[config.training.dtype]
         ex = config.execution
         # as in the JAX runner: resize_and_pad pads, every other mode resizes
-        self._pp = dict(pad_method=ex.pad_method, loader_mode=ex.loader_mode)
+        self._pp = dict(pad_method=ex.pad_method, loader_mode=ex.loader_mode,
+                        resize_size=ex.resize_target_size,
+                        pad_size=ex.pad_size)
         self._img_hw = (config.image.raw_h, config.image.raw_w)
         self._net_hw = (config.image.h, config.image.w)
         # the fused kernel's geometry (the rule of the JAX package's
@@ -67,6 +93,122 @@ class SegmentationRunner:
         model = build_model(self.config.model)
         load_flax_flat(model, load_flat_npz(checkpoint))
         return self.place(model)
+
+    @cached_property
+    def loss_fn(self):
+        """``training.loss``, resolved at the first train or validation
+        step (serving needs no loss)."""
+        return get_loss_fn(self.config.training.loss)
+
+    def train_state(self, model: nn.Module) -> TrainState:
+        """``model`` on the device for training: fp32 parameters in
+        channels_last memory computing in ``training.dtype``, with the
+        JAX package's Adam over them."""
+        if self.config.execution.use_depth:
+            raise NotImplementedError(
+                "execution.use_depth: the depth-taking models are not ported "
+                "yet (ROADMAP.md Queue A item 13, other architectures)")
+        model = model.to(self.device, memory_format=torch.channels_last)
+        model.set_training_precision(self.dtype)
+        t = self.config.training
+        return TrainState(model, make_optimizer(model, t.lr, t.l2_reg_conv))
+
+    def init_state(self, seed: int = 1234) -> TrainState:
+        """A fresh train state from flax's default initializers, seeded."""
+        if self.config.model.pretrained:
+            raise NotImplementedError(
+                "model.pretrained: grafting pretrained encoder weights is "
+                "not ported yet (ROADMAP.md Queue A item 13)")
+        return self.train_state(init_flax_like(build_model(self.config.model),
+                                               seed))
+
+    def device_batch(self, *arrays: np.ndarray):
+        """Host arrays -> device tensors (pinned, asynchronous on CUDA)."""
+        return tuple(to_device(a, self.device) for a in arrays)
+
+    # -- training ---------------------------------------------------------------
+    def _train_inputs(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,
+                      params: AugmentParams):
+        """Augment with ``params``, then resize 102 -> pad 13 -> 128 (or
+        resize to the network size in ``resize`` mode) -> normalize +
+        depth channels. Returns the fp32 network input [B, 3, H, W]
+        (channels_last) and the one-hot target [B, H, W, 2] (NHWC)."""
+        x = images_u8.to(torch.float32) / 255.0
+        m = (masks_u8 > 0).to(torch.float32)
+        x, m = apply_augment(params, x, m)
+        if self._pp["loader_mode"] != "resize":
+            size = (self._pp["resize_size"],) * 2
+            pad = (self._pp["pad_size"],) * 2
+            x = pad_fixed(resize_hw(x, size), pad, self._pp["pad_method"])
+            m = pad_fixed(resize_hw(m, size), pad, self._pp["pad_method"])
+        else:
+            x = resize_hw(x, self._net_hw)
+            m = resize_hw(m, self._net_hw)
+        m = (m > 0.5).to(torch.float32)
+        x = add_depth_channels(normalize_gray(x))
+        return x.permute(0, 3, 1, 2), one_hot_target(m)
+
+    def update(self, state: TrainState, x: torch.Tensor, y: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Forward in train mode, the loss over NHWC logits, backward, one
+        Adam step; BatchNorm statistics move in the forward. Returns the
+        loss (a 0-d tensor on the device)."""
+        model = state.model
+        model.train()
+        logits = model(x, generator)
+        loss = self.loss_fn(logits.permute(0, 2, 3, 1), y)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    def train_step(self, state: TrainState, images_u8: torch.Tensor,
+                   masks_u8: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+        """One training step on uint8 [B, 101, 101] images and masks; the
+        augmentation (and any dropout) draws from ``generator``."""
+        b, h, w = images_u8.shape
+        params = draw_augment_params(generator, b, h, w)
+        x, y = self._train_inputs(images_u8, masks_u8, params)
+        return self.update(state, x, y, generator)
+
+    @torch.no_grad()
+    def val_loss_step(self, model: nn.Module, images_u8: torch.Tensor,
+                      masks_u8: torch.Tensor) -> torch.Tensor:
+        """Validation loss in network space on inference-preprocessed
+        batches (the preprocess kernel on the card); ``model`` in eval
+        mode."""
+        x = self._infer_inputs(images_u8)
+        m = (masks_u8 > 0).to(torch.float32)
+        if self._pp["loader_mode"] == "resize_and_pad":
+            m = pad_to_divisor(m, 64, self._pp["pad_method"])
+        else:
+            m = resize_hw(m, self._net_hw)
+        y = one_hot_target((m > 0.5).to(torch.float32))
+        return self.loss_fn(model(x).permute(0, 2, 3, 1), y)
+
+    @staticmethod
+    def metrics_step(probs_salt: torch.Tensor, gt: torch.Tensor,
+                     thresholds: torch.Tensor):
+        """Per-image IoU and IOUT at every sweep threshold in one pass:
+        ``probs_salt`` / ``gt`` [B, 101, 101], ``thresholds`` [T]; returns
+        (iou [T, B], iout [T, B])."""
+        gtb = gt > 0
+        pred = probs_salt[None] > thresholds[:, None, None, None]
+        inter = (pred & gtb[None]).sum(dim=(2, 3)).to(torch.float32)
+        union = (pred | gtb[None]).sum(dim=(2, 3)).to(torch.float32)
+        gt_any = gtb.flatten(1).any(dim=1)[None]
+        pred_any = pred.flatten(2).any(dim=2)
+        both_empty = ~gt_any & ~pred_any
+        iou_val = torch.where(union > 0,
+                              inter / torch.clamp(union, min=1.0), 0.0)
+        iou = torch.where(both_empty, 1.0, iou_val)
+        grid = torch.tensor(_IOUT_GRID, dtype=torch.float32,
+                            device=probs_salt.device)
+        hits = (iou_val[..., None] >= grid).to(torch.float32)
+        iout = torch.where(both_empty, 1.0, hits.mean(dim=-1))
+        return iou, iout
 
     # -- fused steps ----------------------------------------------------------
     def _infer_inputs(self, images_u8: torch.Tensor) -> torch.Tensor:

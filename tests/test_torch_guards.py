@@ -2,7 +2,8 @@
 
 (g) importing every ``salt_tpu_torch`` module loads no ``jax``, ``flax``
 or ``salt_tpu``; (h) every entry point called without ``device`` raises
-where CUDA is absent."""
+where CUDA is absent; (i) the kernels' wrappers refuse what their kernel
+cannot take before any launch."""
 import os
 import subprocess
 import sys
@@ -20,8 +21,11 @@ import importlib, pkgutil, sys
 import salt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(salt_tpu_torch.__path__,
                                                "salt_tpu_torch.")]
-assert "salt_tpu_torch.pipeline.serving" in names, names
-assert "salt_tpu_torch.ops.preprocess_kernel" in names, names
+for needed in ("pipeline.serving", "ops.preprocess_kernel", "ops.sort_kernel",
+               "ops.bitonic", "ops.augment", "losses.lovasz", "train.loop",
+               "train.callbacks", "train.state", "pipeline.api",
+               "data.bundle", "metrics.iout"):
+    assert "salt_tpu_torch." + needed in names, names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -33,7 +37,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 35
 
 
 @pytest.fixture
@@ -77,3 +81,36 @@ def test_kernel_wrapper_refuses_what_it_cannot_launch():
     assert out.shape == (0, 128, 128, 3)
     assert np.isfinite(preprocess_inference_kernel(
         torch.full((1, 101, 101), 255, dtype=torch.uint8)).float().numpy()).all()
+
+
+def test_cli_train_defaults_to_cuda_and_raises(no_cuda, tmp_path):
+    from salt_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["train", "--synthetic", "8", "--epochs", "1",
+                  "--set", f"paths.experiment_dir={tmp_path / 'e'}"])
+    assert not (tmp_path / "e").exists()
+
+
+def test_pipeline_train_defaults_to_cuda_and_raises(no_cuda, tmp_path):
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.core.experiment import Experiment
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.pipeline import api
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.train(default_config(), Experiment(str(tmp_path / "e")),
+                  synthetic_bundle(8))
+
+
+def test_sort_wrapper_refuses_what_it_cannot_launch():
+    from salt_tpu_torch.ops import sort_kernel
+    before = sort_kernel.launches
+    payload = torch.zeros(2, 32768, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        sort_kernel.sort_desc(torch.zeros(2, 32768, device="meta"), payload)
+    with pytest.raises(ValueError, match="power of two"):
+        sort_kernel.sort_desc(torch.zeros(1, 65536),
+                              torch.zeros(1, 65536, dtype=torch.int32))
+    with pytest.raises(TypeError, match="fp32"):
+        sort_kernel.sort_desc(torch.zeros(2, 1024, dtype=torch.int32),
+                              torch.zeros(2, 1024, dtype=torch.int32))
+    assert sort_kernel.launches == before
