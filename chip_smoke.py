@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the flagship
-UNetResNet34 at full width, end to end, on its two paths — hflip-TTA
-``serve`` and ``train``.
+UNetResNet34 at full width, end to end, on its paths — hflip-TTA
+``serve``, ``train`` and the K-fold CV loop (``train-evaluate-predict-cv``
+/ ``evaluate-predict-cv``).
 
     python3 chip_smoke.py
 
@@ -10,22 +11,31 @@ Phases (each raises on failure; the script then exits non-zero):
                 nvidia-smi;
 2. build      — every CUDA kernel, from the sources in the checkout, one
                 nvcc per source, all at once;
-3. kernel     — each kernel against its plain PyTorch version on the card
-                at the shapes its path gives it, and its time beside the
-                plain version's, a library call's where there is one, and
-                its bound;
+3. kernel     — each kernel (preprocess, bitonic sort, 3x3 conv) against
+                its plain PyTorch version on the card at the shapes its
+                path gives it, and its time beside the plain version's, a
+                library call's where there is one, and its bound;
 4. model      — the flagship from seeded weights: fp32 forward on the card
-                (TF32 off) against the CPU, bf16 against fp32;
-5. profile    — where one bf16 serve step's device time goes;
+                (TF32 off) against the CPU in both forms (train; infer,
+                the sliced-concat sums), bf16 against fp32, and the bf16
+                infer form through the conv kernel against the plain
+                convs;
+5. profile    — where one bf16 serve step's device time goes, with
+                ``model.pallas_conv`` "off" and "on";
 6. serve      — a 2-fold CV experiment directory of seeded weights and
                 2048 seeded PNGs through ``pipeline.serving.serve`` (hflip
-                TTA, batch 24, bf16);
+                TTA, batch 24, bf16), with "off" and then "on";
 7. train step — one fp32 train step of the flagship on the card against
                 the CPU, from the same weights and augmentation draws;
 8. train      — ``pipeline.api.train`` on 480 synthetic images (fold 0:
                 400 train / 80 valid, 16 steps per epoch), 2 epochs, bf16,
                 batch 24; its ``best.npz`` then served;
-9. train profile — where one bf16 train step's device time goes.
+9. train profile — where one bf16 train step's device time goes;
+10. cv        — ``cli train-evaluate-predict-cv`` with "on" (6 folds of
+                400 / 80 synthetic images, 1 epoch each, hflip TTA, a
+                120-image test set), then ``cli evaluate-predict-cv`` with
+                "off" on the same experiment directory: the same fold
+                scores and submission under the threshold-margin rule.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after. The script then prints one JSON line of kernel records and,
 last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -46,6 +56,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+BF16_DENSE_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
 
 N_SERVE_IMAGES = 2048
 N_FOLDS = 2
@@ -54,6 +65,10 @@ TRAIN_BATCH = 24
 SORT_LENGTH = 2 * 128 * 128       # one image's logits in the Lovász hinge
 N_TRAIN_IMAGES = 480              # fold 0 of 6: 400 train / 80 valid
 TRAIN_EPOCHS = 2
+N_CV_IMAGES = 480                 # 6 folds of 400 train / 80 valid
+#: flagship convs the conv kernel takes per infer forward: 6 encoder
+#: layer1, 3 of dec2, 5 hypercolumn-head branches (all 64 -> 64)
+CONV_KERNEL_PER_FORWARD = 14
 # seeds of the folds' random weights, chosen so that the fold mean
 # straddles the 0.5 threshold and the masks hold both classes
 FOLD_SEEDS = (1, 100)
@@ -214,15 +229,21 @@ def phase_kernel(dev):
 
 
 def phase_model(dev):
-    """Full-width UNetResNet34 from seed 0. fp32 on the card vs the CPU at
+    """Full-width UNetResNet34 from seed 0, in the train form and the infer
+    form (the sliced-concat sums). fp32 on the card vs the CPU at
     rtol=atol=2e-3 (the whole-model tolerance of the CPU parity tests).
-    bf16 vs fp32 on the card: max |d logits| <= 0.1 * max |fp32 logits|,
-    because bf16 keeps 8 significant bits and its rounding compounds
-    through ~70 convolution/BN layers; the tolerance bounds a drift, it
-    does not claim agreement digit for digit."""
+    bf16 vs fp32 on the card, and the bf16 infer form through the conv
+    kernel (``model.pallas_conv="on"``) vs the same form on the plain
+    convs: max |d logits| <= 0.1 * max |fp32 logits|, because bf16 keeps
+    8 significant bits and its rounding compounds through ~70
+    convolution/BN layers; the tolerance bounds a drift, it does not
+    claim agreement digit for digit. The kernel launches 14 times in the
+    infer forward."""
     import torch
     from salt_tpu_torch.core.config import default_config
-    from salt_tpu_torch.models.registry import build_model, init_seeded
+    from salt_tpu_torch.models.registry import (build_model, infer_conv_fn,
+                                                init_seeded)
+    from salt_tpu_torch.ops import conv_kernel as ck
     from salt_tpu_torch.ops.preprocess import preprocess_inference
     cfg = default_config()
     x = preprocess_inference(torch.from_numpy(seeded_images(2, seed=3)))
@@ -230,35 +251,70 @@ def phase_model(dev):
     model = init_seeded(build_model(cfg.model), seed=0)
     with torch.no_grad():
         cpu = model(x)
+        cpu_infer = model(x, infer=True)
         model = model.to(dev, memory_format=torch.channels_last)
         fp32 = model(x.to(dev))
+        fp32_infer = model(x.to(dev), infer=True)
         model.set_compute_dtype(torch.bfloat16)
         bf16 = model(x.to(dev))
+        bf16_infer = model(x.to(dev), infer=True)
+        cfg.model.pallas_conv = "on"
+        model.infer_conv = infer_conv_fn(cfg.model)
+        ck.launches = 0
+        bf16_kernel = model(x.to(dev), infer=True)
+        torch.cuda.synchronize()
+        kernel_launches = ck.launches
     torch.cuda.synchronize()
     err32 = float((fp32.cpu() - cpu).abs().max())
+    err32_infer = float((fp32_infer.cpu() - cpu_infer).abs().max())
     torch.testing.assert_close(fp32.cpu(), cpu, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(fp32_infer.cpu(), cpu_infer, rtol=2e-3,
+                               atol=2e-3)
     scale = float(fp32.abs().max())
     err16 = float((bf16 - fp32).abs().max())
-    if not (torch.isfinite(bf16).all() and err16 <= 0.1 * scale):
-        raise AssertionError(f"bf16 vs fp32 logits: max err {err16}, "
-                             f"logit scale {scale}")
+    err16_infer = float((bf16_infer - fp32_infer).abs().max())
+    err_kernel = float((bf16_kernel - bf16_infer).abs().max())
+    for name, out, err in (("bf16 vs fp32", bf16, err16),
+                           ("bf16 infer vs fp32 infer", bf16_infer,
+                            err16_infer),
+                           ("bf16 infer conv kernel vs plain convs",
+                            bf16_kernel, err_kernel)):
+        if not (torch.isfinite(out).all() and err <= 0.1 * scale):
+            raise AssertionError(f"{name} logits: max err {err}, logit "
+                                 f"scale {scale}")
+    if kernel_launches != CONV_KERNEL_PER_FORWARD:
+        raise AssertionError(f"conv kernel launched {kernel_launches} times "
+                             f"in one infer forward, expected "
+                             f"{CONV_KERNEL_PER_FORWARD}")
     log("model", arch="UNetResNet34", params=sum(
         p.numel() for p in model.parameters()), fp32_vs_cpu=err32,
-        bf16_vs_fp32=err16, logit_scale=scale)
+        fp32_infer_vs_cpu=err32_infer, bf16_vs_fp32=err16,
+        bf16_infer_vs_fp32=err16_infer, bf16_kernel_vs_plain=err_kernel,
+        conv_launches_per_forward=kernel_launches, logit_scale=scale)
 
 
-def phase_profile(dev, card, steps=5, top=12):
+def _is_library_conv(key):
+    """A cuDNN / CUTLASS convolution kernel's name (the conv kernel of
+    the port aside)."""
+    k = key.lower()
+    return "conv3x3_pair" not in k and any(
+        s in k for s in ("conv", "fprop", "implicit_gemm", "cudnn"))
+
+
+def phase_profile(dev, card, pallas_conv="off", steps=5, top=12):
     """Where one serve batch's time goes: the bf16 flagship hflip-TTA step
-    on SERVE_BATCH images, ``steps`` steps under ``torch.profiler``. Host
-    wall time per step (synchronized), device kernel time per step, the
-    device's busy share of the wall time, and the kernels that take the
-    most device time."""
+    on SERVE_BATCH images with ``model.pallas_conv``, ``steps`` steps
+    under ``torch.profiler``. Host wall time per step (synchronized),
+    device kernel time per step, the device's busy share of the wall
+    time, the conv kernel's and the library convs' device time, and the
+    kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from salt_tpu_torch.core.config import default_config
     from salt_tpu_torch.train.steps import SegmentationRunner
     cfg = default_config()
+    cfg.model.pallas_conv = pallas_conv
     runner = SegmentationRunner(cfg, dev)
     model = runner.init_model(seed=5)
     imgs = torch.from_numpy(seeded_images(SERVE_BATCH, seed=6)).to(dev)
@@ -280,16 +336,62 @@ def phase_profile(dev, card, steps=5, top=12):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
     device_ms_step = sum(_self_device_us(e) for e in events) / steps / 1e3
-    log("profile", step="predict_tta_step", images=SERVE_BATCH,
-        dtype=cfg.training.dtype, wall_ms=f"{wall_ms:.3f}",
-        device_ms=f"{device_ms_step:.3f}",
+    kernel = [e for e in events if "conv3x3_pair_kernel" in e.key]
+    kernel_ms = sum(_self_device_us(e) for e in kernel) / steps / 1e3
+    library_ms = sum(_self_device_us(e) for e in events
+                     if _is_library_conv(e.key)) / steps / 1e3
+    log("profile", step="predict_tta_step", pallas_conv=pallas_conv,
+        images=SERVE_BATCH, dtype=cfg.training.dtype,
+        wall_ms=f"{wall_ms:.3f}", device_ms=f"{device_ms_step:.3f}",
         busy_share=f"{device_ms_step / wall_ms:.3f}", gflop=f"{gflop:.1f}",
         tflops_on_wall=f"{gflop / wall_ms:.1f}",
-        tflops_on_device=f"{gflop / device_ms_step:.1f}", card=repr(card))
+        tflops_on_device=f"{gflop / device_ms_step:.1f}",
+        conv_kernel_ms=f"{kernel_ms:.3f}",
+        conv_kernel_calls=sum(e.count for e in kernel) // steps,
+        conv_kernel_share=f"{kernel_ms / device_ms_step:.3f}",
+        library_conv_ms=f"{library_ms:.3f}",
+        library_conv_share=f"{library_ms / device_ms_step:.3f}",
+        card=repr(card))
     events.sort(key=_self_device_us, reverse=True)
     for e in events[:top]:
-        log("profile", kernel=repr(e.key[:90]), calls_per_step=e.count // steps,
+        log("profile", pallas_conv=pallas_conv, kernel=repr(e.key[:90]),
+            calls_per_step=e.count // steps,
             device_ms_per_step=f"{_self_device_us(e) / steps / 1e3:.3f}")
+
+
+def _csv_masks(path, h=101, w=101):
+    """(ids, uint8 masks [N, h, w]) of a submission.csv (column-major,
+    1-indexed (start, length) runs)."""
+    import csv
+    import numpy as np
+    ids, masks = [], []
+    with open(path, newline="") as f:
+        for row in csv.DictReader(f):
+            flat = np.zeros(h * w, np.uint8)
+            runs = [int(v) for v in row["rle_mask"].split()]
+            for start, length in zip(runs[0::2], runs[1::2]):
+                flat[start - 1:start - 1 + length] = 1
+            ids.append(row["id"])
+            masks.append(flat.reshape(w, h).T)
+    return ids, np.stack(masks)
+
+
+def margin_rule(what, p_new, p_ref, masks_new, masks_ref, threshold=0.5,
+                slack=0.0):
+    """The threshold-margin rule of tests/test_submission_parity.py: the
+    masks are equal on every pixel whose reference probability is farther
+    from the threshold than the largest probability delta (plus
+    ``slack``, the rounding of a float16 archive). Returns (delta,
+    undecidable pixels)."""
+    import numpy as np
+    delta = float(np.abs(p_new.astype(np.float32)
+                         - p_ref.astype(np.float32)).max())
+    decidable = np.abs(p_ref.astype(np.float32) - threshold) > delta + slack
+    bad = int(((masks_new != masks_ref) & decidable).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} decidable pixels differ "
+                             f"(probability delta {delta})")
+    return delta, int((~decidable).sum())
 
 
 def phase_serve(dev, card):
@@ -300,6 +402,7 @@ def phase_serve(dev, card):
     from salt_tpu_torch.core.experiment import checkpoint_path, save_flat_npz
     from salt_tpu_torch.models.convert import to_flax_flat
     from salt_tpu_torch.models.registry import build_model, init_seeded
+    from salt_tpu_torch.ops import conv_kernel as ck
     from salt_tpu_torch.ops import preprocess_kernel as pk
     from salt_tpu_torch.pipeline.serving import serve
     from salt_tpu_torch.train.steps import SegmentationRunner
@@ -369,6 +472,45 @@ def phase_serve(dev, card):
         err = float(np.abs(probs[:SERVE_BATCH].astype(np.float32) - ref).max())
         if err > 1e-3:
             raise AssertionError(f"served probabilities vs direct step: {err}")
+        del folds
+
+        # the same serve through the conv kernel (model.pallas_conv="on",
+        # set by the caller so the experiment's config.json does not undo
+        # it): timed without the archive, then with it for the margin rule
+        # against the default run's archive (float16: slack 1e-3 covers
+        # the rounding of both archives, 3 x 2^-12)
+        on_set = ("model.pallas_conv",)
+        cfg.model.pallas_conv = "on"
+        csv_on = os.path.join(tmp, "submission_on.csv")
+        ck.launches = 0
+        pk.launches = 0
+        result_on = serve(cfg, exp, img_dir, csv_on, user_set=on_set,
+                          device=dev)
+        on_launches, on_pre = ck.launches, pk.launches
+        forwards = result_on["batches"] + result_on["warmup_batches"]
+        if on_launches != CONV_KERNEL_PER_FORWARD * forwards:
+            raise AssertionError(
+                f"conv kernel launched {on_launches} times for {forwards} "
+                f"forwards x {CONV_KERNEL_PER_FORWARD}")
+        if on_pre != forwards:
+            raise AssertionError(f"preprocess kernel launched {on_pre} "
+                                 f"times for {forwards} forwards")
+        probs_on_out = os.path.join(tmp, "probs_on.npz")
+        csv_on2 = os.path.join(tmp, "submission_on2.csv")
+        serve(cfg, exp, img_dir, csv_on2, probs_on_out, user_set=on_set,
+              device=dev)
+        with open(csv_on) as f, open(csv_on2) as g:
+            if f.read() != g.read():
+                raise AssertionError("masks differ between two serve runs "
+                                     "with the conv kernel")
+        probs_on = np.load(probs_on_out, allow_pickle=True)["probs"]
+        ids_off, masks_off = _csv_masks(out_csv)
+        ids_on, masks_on = _csv_masks(csv_on)
+        if ids_on != ids_off:
+            raise AssertionError("submission ids differ")
+        on_delta, on_undecidable = margin_rule(
+            "serve on vs off", probs_on, probs, masks_on, masks_off,
+            slack=1e-3)
     salt = float((probs.astype(np.float32) > 0.5).mean())
     log("serve", images=N_SERVE_IMAGES, folds=N_FOLDS, batch=SERVE_BATCH,
         tta="hflip", dtype=cfg.training.dtype,
@@ -382,7 +524,16 @@ def phase_serve(dev, card):
     log("serve", probs_out="float16 archive",
         model_images_per_s=result2["images_per_sec"],
         timed_s=f"{result2['seconds']:.3f}", card=repr(card))
-    return launches
+    log("serve", pallas_conv="on", images=N_SERVE_IMAGES, folds=N_FOLDS,
+        model_images_per_s=result_on["images_per_sec"],
+        images_per_s=f"{N_SERVE_IMAGES / result_on['seconds']:.1f}",
+        default_images_per_s=f"{N_SERVE_IMAGES / result['seconds']:.1f}",
+        timed_s=f"{result_on['seconds']:.3f}", conv_launches=on_launches,
+        forwards=forwards, preprocess_launches=on_pre,
+        probs_delta_vs_off=on_delta, undecidable_pixels=on_undecidable,
+        mask_pixels_differing=int((masks_on != masks_off).sum()),
+        card=repr(card))
+    return launches + on_pre, on_launches
 
 
 def _sort_inputs(b, p, ties, seed):
@@ -493,6 +644,125 @@ def phase_sort_kernel(dev):
             "launches": None, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
             "bound_by": bound_by, "library_ms": library_ms}
+
+
+#: (name, x shape [B, C, Hx, Wx], halo): the serve path's four shapes
+#: (the 64x64 and 128x128 convs, SAME and, in pad_mode="reference", on a
+#: halo ring), a small one, and a C = 320 one (the head's literal concat)
+CONV_SHAPES = (("enc_dec_64", (48, 64, 64, 64), False),
+               ("head_128", (48, 64, 128, 128), False),
+               ("dec_64_halo", (48, 64, 66, 66), True),
+               ("head_128_halo", (48, 64, 130, 130), True),
+               ("small", (1, 64, 32, 32), False),
+               ("c320", (2, 320, 128, 128), False))
+
+
+def _conv_inputs(shape, seed):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    b, c, hx, wx = shape
+    x = torch.from_numpy(rng.randn(b, hx, wx, c).astype(np.float32))
+    x = x.permute(0, 3, 1, 2).to(torch.bfloat16)        # channels_last
+    w = torch.from_numpy((rng.randn(64, c, 3, 3) / np.sqrt(9 * c))
+                         .astype(np.float32)).to(torch.bfloat16)
+    return x, w
+
+
+def conv_bound(shape, halo):
+    """(bound ms, "bytes" | "operations", flops, bytes) of one conv:
+    each input read once, the output written once; 2 * M * N * K
+    multiply-adds at the bf16 dense rate."""
+    b, c, hx, wx = shape
+    h, w = (hx - 2, wx - 2) if halo else (hx, wx)
+    flops = 2 * b * h * w * 64 * 9 * c
+    nbytes = 2 * (b * c * hx * wx + 64 * 9 * c + b * 64 * h * w)
+    t_ops, t_bytes = flops / BF16_DENSE_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def phase_conv_kernel(dev):
+    """The conv kernel against its plain version (fp32 ``F.conv2d`` with
+    TF32 off, rounded to bf16) on the card, bf16, at every shape of
+    CONV_SHAPES. Element-wise, |kernel - plain| <= one bf16 ulp of the
+    plain value + 2 K 2^-24 sum|x||w| (K = 9C): the two sum the same
+    exact bf16 products in fp32 in another order, each within K 2^-24
+    sum|x||w| of the exact sum, and the rounding to bf16 adds at most one
+    ulp. The second term is the floor where cancellation makes a value
+    tiny next to its terms. Times at the 128x128 and 64x64 shapes (SAME)
+    from the profiler: the kernel, the plain version, and ``F.conv2d`` in
+    bf16 on channels_last (cuDNN, the yardstick; the port never calls
+    it)."""
+    import torch
+    import torch.nn.functional as F
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops.conv_pair import conv3x3_pair
+    max_err = 0.0
+    for i, (name, shape, halo) in enumerate(CONV_SHAPES):
+        x, w = _conv_inputs(shape, seed=20 + i)
+        x = x.to(dev).contiguous(memory_format=torch.channels_last)
+        w = w.to(dev)
+        with torch.no_grad():
+            got = ck.conv3x3_pair_kernel(x, w, halo=halo)
+            torch.cuda.synchronize()
+            want = conv3x3_pair(x, w, halo=halo).float()
+            terms = conv3x3_pair(x.float().abs(), w.float().abs(), halo=halo)
+        _, exp = torch.frexp(want)
+        ulp = torch.where(want == 0, torch.zeros_like(want),
+                          torch.ldexp(torch.ones_like(want), exp - 8))
+        tol = ulp + 2 * 9 * shape[1] * 2.0 ** -24 * terms
+        err = (got.float() - want).abs()
+        worst = float((err / tol.clamp_min(1e-30)).max())
+        max_err = max(max_err, float(err.max()))
+        log("conv_kernel", shape=name, x=list(shape), halo=halo,
+            max_abs_err=float(err.max()), worst_err_over_tol=f"{worst:.3f}",
+            over_one_ulp=int((err > ulp).sum()), elements=err.numel())
+        if got.shape != want.shape or not worst <= 1.0:
+            raise AssertionError(f"conv kernel {name}: error {worst} x "
+                                 "the tolerance")
+    records = {}
+    for name, shape, halo in CONV_SHAPES[:2]:
+        x, w = _conv_inputs(shape, seed=7)
+        x = x.to(dev).contiguous(memory_format=torch.channels_last)
+        w = w.to(dev)
+
+        def kernel():
+            return ck.conv3x3_pair_kernel(x, w, halo=halo)
+
+        def plain():
+            return conv3x3_pair(x, w, halo=halo)
+
+        def library():
+            return F.conv2d(x, w, padding=0 if halo else 1)
+
+        with torch.no_grad():
+            ms = device_ms(kernel, match="conv3x3_pair_kernel", iters=20)
+            plain_ms = device_ms(plain, iters=10)
+            library_ms = device_ms(library, iters=20)
+            events = dict(ms=time_ms(kernel, 50, 5),
+                          plain_ms=time_ms(plain, 20, 3),
+                          library_ms=time_ms(library, 50, 5))
+        timed_by = "profiler"
+        if 0.0 in (ms, plain_ms, library_ms):
+            ms, plain_ms, library_ms = (events["ms"], events["plain_ms"],
+                                        events["library_ms"])
+            timed_by = "events"
+        bound_ms, bound_by, flops, nbytes = conv_bound(shape, halo)
+        log("conv_kernel", shape=name, x=list(shape), ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+            bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, flops=flops,
+            bytes=nbytes, tflops=f"{flops / ms / 1e9:.1f}",
+            roofline_share=f"{bound_ms / ms:.3f}", timed_by=timed_by,
+            events_ms=f"{events['ms']:.5f}",
+            events_library_ms=f"{events['library_ms']:.5f}")
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+    head = records["head_128"]
+    return {"name": "conv3x3_pair", "route": "cuda",
+            "source": "salt_tpu_torch/csrc/conv3x3_pair.cu",
+            "replaces": "salt_tpu/ops/pallas_conv.py:66",
+            "launches": None, "max_abs_err": max_err, **head}
 
 
 def _flat_grads(model):
@@ -775,6 +1045,111 @@ def phase_train_profile(dev, card, steps=5, top=14):
             self_cpu_ms_per_step=f"{e.self_cpu_time_total / steps / 1e3:.3f}")
 
 
+def phase_cv(card, n_folds=6):
+    """The slice's CV path at full width, through the command line as a
+    user runs it: ``train-evaluate-predict-cv`` with
+    ``model.pallas_conv="on"`` (bf16, hflip TTA, batch 24, N_CV_IMAGES
+    synthetic images in ``n_folds`` folds, 1 epoch per fold, the CLI's
+    synthetic test set of N_CV_IMAGES // 4), then ``evaluate-predict-cv``
+    with "off" on the same experiment directory. The conv kernel launches
+    14 times per infer forward of the first (the validation predictions
+    of each fit, the out-of-fold and the test predictions) and never in
+    the second; the sort and preprocess kernels once per train step,
+    validation-loss or predict batch. The out-of-fold masks (hence the
+    fold scores) and the submission agree under the threshold-margin rule
+    (fp32 archives: no slack), and a fold with no undecidable pixel has
+    the same IOUT in both."""
+    import numpy as np
+    import torch
+    from salt_tpu_torch import cli
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops import sort_kernel as sk
+
+    if N_CV_IMAGES % n_folds:
+        raise ValueError("the cv phase counts launches for equal folds")
+    n_valid = N_CV_IMAGES // n_folds
+    n_test = max(N_CV_IMAGES // 4, 8)
+    val_batches = math.ceil(n_valid / SERVE_BATCH)
+    test_batches = math.ceil(n_test / SERVE_BATCH)
+    steps = (N_CV_IMAGES - n_valid) // TRAIN_BATCH
+    expected = {
+        "on": dict(conv=CONV_KERNEL_PER_FORWARD * n_folds
+                   * (2 * val_batches + test_batches),
+                   preprocess=n_folds * (3 * val_batches + test_batches),
+                   sort=n_folds * (steps + val_batches)),
+        "off": dict(conv=0, preprocess=n_folds * (val_batches + test_batches),
+                    sort=0)}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "cv")
+        flags = ["--synthetic", str(N_CV_IMAGES), "--epochs", "1",
+                 "--set", f"paths.experiment_dir={exp}",
+                 "--set", "postpro.use_tta=true",
+                 "--set", f"execution.n_cv_splits={n_folds}",
+                 "--set", f"training.batch_size_train={TRAIN_BATCH}",
+                 "--set", f"training.batch_size_inference={SERVE_BATCH}"]
+        for command, mode in (("train-evaluate-predict-cv", "on"),
+                              ("evaluate-predict-cv", "off")):
+            ck.launches = pk.launches = sk.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main([command, *flags,
+                           "--set", f"model.pallas_conv={mode}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(conv=ck.launches, preprocess=pk.launches,
+                          sort=sk.launches)
+            if rc != 0 or counts != expected[mode]:
+                raise AssertionError(f"{command} ({mode}): rc {rc}, kernel "
+                                     f"launches {counts}, expected "
+                                     f"{expected[mode]}")
+            with open(os.path.join(exp, "cv_scores.json")) as f:
+                scores = json.load(f)
+            out = {}
+            for name in ("out_of_fold_train_predictions",
+                         "out_of_fold_test_predictions"):
+                with np.load(os.path.join(exp, "outputs", f"{name}.npz"),
+                             allow_pickle=True) as z:
+                    out[name] = (list(z["ids"]), z["images"][:, 1])
+            ids, masks = _csv_masks(os.path.join(exp, "submission.csv"))
+            runs[mode] = dict(wall=wall, counts=counts, scores=scores,
+                              out=out, ids=ids, masks=masks)
+            log("cv", command=command, pallas_conv=mode, wall_s=f"{wall:.3f}",
+                folds=n_folds, images=N_CV_IMAGES, test_images=n_test,
+                conv_launches=counts["conv"],
+                preprocess_launches=counts["preprocess"],
+                sort_launches=counts["sort"],
+                fold_iout=[round(v, 5) for v in scores["fold_iout"]],
+                fold_iou=[round(v, 5) for v in scores["fold_iou"]],
+                iout_mean=f"{scores['iout_mean']:.5f}", card=repr(card))
+    on, off = runs["on"], runs["off"]
+    oof_ids, p_on = on["out"]["out_of_fold_train_predictions"]
+    oof_ids_off, p_off = off["out"]["out_of_fold_train_predictions"]
+    if oof_ids != oof_ids_off or on["ids"] != off["ids"]:
+        raise AssertionError("cv: ids differ between the two commands")
+    if not (np.isfinite(p_on).all() and len(on["ids"]) == n_test):
+        raise AssertionError("cv: non-finite predictions or a short "
+                             "submission")
+    oof_delta, oof_undecidable = margin_rule(
+        "cv out-of-fold masks", p_on, p_off, p_on > 0.5, p_off > 0.5)
+    _, t_on = on["out"]["out_of_fold_test_predictions"]
+    _, t_off = off["out"]["out_of_fold_test_predictions"]
+    test_delta, test_undecidable = margin_rule(
+        "cv submission", t_on, t_off, on["masks"], off["masks"])
+    for fold in range(n_folds):
+        part = slice(fold * n_valid, (fold + 1) * n_valid)
+        exact = not (np.abs(p_off[part] - 0.5) <= oof_delta).any()
+        a, b = on["scores"]["fold_iout"][fold], off["scores"]["fold_iout"][fold]
+        if exact and a != b:
+            raise AssertionError(f"cv fold {fold}: IOUT {a} vs {b} with no "
+                                 "undecidable pixel")
+    log("cv", oof_delta=oof_delta, oof_undecidable_pixels=oof_undecidable,
+        test_delta=test_delta, test_undecidable_pixels=test_undecidable,
+        submission_pixels_differing=int((on["masks"] != off["masks"]).sum()),
+        card=repr(card))
+    return on["counts"], off["counts"]
+
+
 def main():
     try:
         import torch
@@ -800,16 +1175,25 @@ def main():
     phase_build()
     preprocess = phase_kernel(dev)
     sort = phase_sort_kernel(dev)
+    conv = phase_conv_kernel(dev)
     phase_model(dev)
-    phase_profile(dev, smi)
-    serve_launches = phase_serve(dev, smi)
+    phase_profile(dev, smi, "off")
+    phase_profile(dev, smi, "on")
+    serve_preprocess, serve_conv = phase_serve(dev, smi)
     phase_train_step(dev)
-    sort["launches"], train_preprocess = phase_train(dev, smi)
-    preprocess["launches"] = serve_launches + train_preprocess
-    log("launches", preprocess_serve=serve_launches,
-        preprocess_train=train_preprocess, sort_train=sort["launches"])
+    train_sort, train_preprocess = phase_train(dev, smi)
     phase_train_profile(dev, smi)
-    print(json.dumps({"kernels": [preprocess, sort]}), flush=True)
+    cv_on, cv_off = phase_cv(smi)
+    preprocess["launches"] = (serve_preprocess + train_preprocess
+                              + cv_on["preprocess"] + cv_off["preprocess"])
+    sort["launches"] = train_sort + cv_on["sort"]
+    conv["launches"] = serve_conv + cv_on["conv"]
+    log("launches", preprocess_serve=serve_preprocess,
+        preprocess_train=train_preprocess,
+        preprocess_cv=cv_on["preprocess"] + cv_off["preprocess"],
+        sort_train=train_sort, sort_cv=cv_on["sort"], conv_serve=serve_conv,
+        conv_cv=cv_on["conv"])
+    print(json.dumps({"kernels": [preprocess, sort, conv]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

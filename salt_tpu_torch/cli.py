@@ -1,21 +1,26 @@
-"""Command line of the port (the ``train`` and ``serve`` commands of
-``salt_tpu/cli.py``).
+"""Command line of the port (the ``train``, ``evaluate``, ``predict``,
+CV and ``serve`` commands of ``salt_tpu/cli.py``).
 
 Usage:
     python -m salt_tpu_torch.cli train [--synthetic N] \
         [--synthetic-difficulty easy|hard|real] [--epochs E] [--resume] \
         [--dev-mode] [--config cfg.yaml] [--set section.field=v] \
         [--device cuda|cpu]
+    python -m salt_tpu_torch.cli evaluate | predict | train-evaluate-cv |
+        train-evaluate-predict-cv | evaluate-cv | evaluate-predict-cv
+        [the same options as train]
     python -m salt_tpu_torch.cli serve --checkpoint EXP_DIR_OR_NPZ \
         --images-dir DIR [--out submission.csv] [--no-tta] \
         [--probs-out probs.npz] [--config cfg.yaml] [--set section.field=v] \
         [--device cuda|cpu]
 
 ``train`` fits the configured network on the first fold of the data
-(``paths.metadata_filepath``, or N generated images with
-``--synthetic``) into ``paths.experiment_dir``. Both commands run on the
-CUDA card by default and fail where there is none, unless
-``--device cpu`` is given.
+(``paths.metadata_filepath``, or N generated images with ``--synthetic``
+and a test set of max(N // 4, 8) images without masks, seed + 1) into
+``paths.experiment_dir``; the CV commands train and/or evaluate every
+fold there, and the ``predict`` ones write ``submission.csv``. Every
+command runs on the CUDA card by default and fails where there is none,
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -46,7 +51,10 @@ def _parse_overrides(items):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="salt_tpu_torch")
-    parser.add_argument("command", choices=["train", "serve"])
+    parser.add_argument("command", choices=[
+        "train", "evaluate", "predict", "train-evaluate-cv",
+        "train-evaluate-predict-cv", "evaluate-cv", "evaluate-predict-cv",
+        "serve"])
     parser.add_argument("--config", default=None,
                         help="YAML config (native nested or reference-style "
                              "'parameters:' layout); falls back to "
@@ -69,8 +77,9 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--synthetic", type=int, default=0, metavar="N",
-                        help="train: N generated images instead of the "
-                             "data dirs")
+                        help="every command but serve: N generated images "
+                             "(and max(N // 4, 8) test images) instead of "
+                             "the data dirs")
     parser.add_argument("--synthetic-difficulty", default="easy",
                         choices=["easy", "hard", "real"])
     parser.add_argument("--epochs", type=int, default=None)
@@ -83,8 +92,8 @@ def main(argv=None):
     init_logger()
     overrides = _parse_overrides(args.set)
     cfg = load_config(args.config, overrides)
-    if args.command == "train":
-        return _train(cfg, args)
+    if args.command != "serve":
+        return _run(cfg, args)
     from salt_tpu_torch.pipeline.serving import serve
     cfg.postpro.use_tta = not args.no_tta
     print(serve(cfg, args.checkpoint, args.images_dir, args.out,
@@ -93,7 +102,22 @@ def main(argv=None):
     return 0
 
 
-def _train(cfg, args) -> int:
+def _bundles(cfg, synthetic: int, difficulty: str = "easy"):
+    """(train, test) bundles: ``synthetic`` generated images and a test
+    set of max(synthetic // 4, 8) without masks, or the data dirs."""
+    if synthetic:
+        from salt_tpu_torch.data.bundle import synthetic_bundle
+        train = synthetic_bundle(synthetic, seed=cfg.execution.seed,
+                                 difficulty=difficulty)
+        test = synthetic_bundle(max(synthetic // 4, 8),
+                                seed=cfg.execution.seed + 1, with_masks=False,
+                                difficulty=difficulty)
+        return train, test
+    from salt_tpu_torch.data.bundle import train_test_bundles
+    return train_test_bundles(cfg)
+
+
+def _run(cfg, args) -> int:
     from salt_tpu_torch.core.device import resolve_device
     from salt_tpu_torch.core.experiment import Experiment
     from salt_tpu_torch.pipeline import api
@@ -104,17 +128,27 @@ def _train(cfg, args) -> int:
         cfg.execution.resume = True
     if args.epochs is not None:
         cfg.training.epochs = args.epochs
-    if args.synthetic:
-        from salt_tpu_torch.data.bundle import synthetic_bundle
-        bundle = synthetic_bundle(args.synthetic, seed=cfg.execution.seed,
-                                  difficulty=args.synthetic_difficulty)
-    else:
-        from salt_tpu_torch.data.bundle import train_test_bundles
-        bundle, _ = train_test_bundles(cfg)
+    train_b, test_b = _bundles(cfg, args.synthetic, args.synthetic_difficulty)
     experiment = Experiment(cfg.paths.experiment_dir,
                             overwrite=cfg.execution.overwrite,
                             clone_from=cfg.execution.clone_experiment_dir_from)
-    api.train(cfg, experiment, bundle, device=device)
+    command = args.command
+    if command == "train":
+        api.train(cfg, experiment, train_b, device=device)
+    elif command == "evaluate":
+        print(api.evaluate(cfg, experiment, train_b, device=device))
+    elif command == "predict":
+        api.predict(cfg, experiment, test_b, device=device)
+    elif command == "train-evaluate-cv":
+        print(api.train_evaluate_cv(cfg, experiment, train_b, device))
+    elif command == "train-evaluate-predict-cv":
+        print(api.train_evaluate_predict_cv(cfg, experiment, train_b, test_b,
+                                            device))
+    elif command == "evaluate-cv":
+        print(api.evaluate_cv(cfg, experiment, train_b, device))
+    else:
+        print(api.evaluate_predict_cv(cfg, experiment, train_b, test_b,
+                                      device))
     return 0
 
 

@@ -102,18 +102,16 @@ class ModelConfig:
     # encoders.py:10-19 — this environment has no egress)
     pretrained_weights_path: str = ""
     pool0: bool = False
-    # inference-only conv quantization: 0 = off, 8 = AQT int8 on the
-    # v5e MXU int8 path (2x bf16 rate). Training always runs full
-    # precision; checkpoints are identical either way (models/quant.py)
+    # inference-only int8 conv quantization: 0 = off, 8 = int8 (not
+    # ported: the model registry refuses it). Training always runs full
+    # precision; checkpoints are identical either way.
     quant_bits: int = 0
-    # inference-only pair-packed Pallas 3x3 conv for the 64-wide decoder
-    # and head convs (ops/pallas_conv.py). MEASURED SLOWER in the full
-    # graph (TTA 25.6 -> 49.6 ms/batch @bs64: custom-call boundaries
-    # break XLA's conv fusion/overlap — see PERF.md "Pallas conv
-    # experiment"), so the default is "off"; kept as an opt-in probe
-    # ("on", or "auto" = on when on TPU) for future libtpu stacks.
-    # Same math as the XLA conv (f32-accumulated bf16); training always
-    # uses XLA convs, checkpoints identical either way.
+    # inference-only 3x3 conv kernel for the 64-wide encoder, decoder and
+    # head convs of the predict steps (ops/conv_pair.py, csrc/
+    # conv3x3_pair.cu): "on", "auto" (= on for tensors on the card) or
+    # "off" (cuDNN convs). Same math as the plain conv (fp32-accumulated
+    # bf16); training always uses the plain convs, checkpoints identical
+    # either way. Its times beside cuDNN's are in PERF.md.
     pallas_conv: str = "off"
     # scratch SaltUNet knobs (neptune.yaml:43-48)
     nr_outputs: int = 1

@@ -15,6 +15,15 @@ The defaults are centred SAME padding and half-pixel bilinear
 (``jax.image.resize`` "linear" == ``F.interpolate(align_corners=False)``
 for these integer upsampling factors, edges included; tested).
 
+Convolutions take a ``conv`` callable with ``F.conv2d``'s signature, the
+counterpart of the JAX package's ``conv_fn`` injection: ``F.conv2d``
+itself in the train form, ``ops.conv_pair.make_conv_fn()`` where
+``model.pallas_conv`` routes the eligible convs to the conv kernel.
+:class:`ConvBnRelu` applied to a list of branches is the JAX package's
+``SlicedConcatConvBnRelu`` (:func:`sliced_concat_conv` its
+``SlicedConcatConv``): the same ``Conv_0`` / ``BatchNorm_0`` parameters as
+the literal concat, so checkpoints load into both forms unchanged.
+
 BatchNorm: eps 1e-5 (flax momentum 0.9 == torch momentum 0.1). In
 training it normalises with the batch's biased variance and, as flax
 does, moves ``running_var`` towards that biased variance too
@@ -22,7 +31,7 @@ does, moves ``running_var`` towards that biased variance too
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,6 +40,9 @@ from torch import nn
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.1
+
+#: a convolution with ``F.conv2d``'s signature
+Conv = Callable[..., torch.Tensor]
 
 
 def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -97,8 +109,43 @@ def batch_norm(features: int) -> BatchNorm2d:
     return BatchNorm2d(features, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
 
+def apply_conv(conv: Conv, module: nn.Conv2d,
+               x: torch.Tensor) -> torch.Tensor:
+    """``module``'s convolution of ``x`` through ``conv``."""
+    return conv(x, module.weight, module.bias, module.stride, module.padding,
+                module.dilation, module.groups)
+
+
+def sliced_concat_conv(branches: Sequence[torch.Tensor], weight: torch.Tensor,
+                       conv: Conv = F.conv2d,
+                       pad_mode: str = "same") -> torch.Tensor:
+    """3x3 conv over the implicit channel concat of ``branches``: the
+    [F, sum(C_i), 3, 3] ``weight`` sliced per branch, each branch
+    convolved on its own and the results summed in branch order, in the
+    branches' dtype (``salt_tpu/models/blocks.py`` ``SlicedConcatConv``
+    :232-275). In ``pad_mode="reference"`` each branch is padded first
+    (the pad commutes with the channel split), then a VALID conv."""
+    padding = 1
+    if pad_mode == "reference":
+        branches = [reference_pad(b, 3, 3) for b in branches]
+        padding = 0
+    out = None
+    off = 0
+    for b in branches:
+        c = b.shape[1]
+        y = conv(b, weight[:, off:off + c], None, 1, padding)
+        out = y if out is None else out + y
+        off += c
+    if off != weight.shape[1]:
+        raise ValueError(f"branches carry {off} channels, the kernel "
+                         f"{weight.shape[1]}")
+    return out
+
+
 class ConvBnRelu(nn.Module):
-    """3x3 conv (no bias, stride 1) -> BN -> ReLU."""
+    """3x3 conv (no bias, stride 1) -> BN -> ReLU. Given a list of
+    branches it convolves their implicit concat (the JAX package's
+    ``SlicedConcatConvBnRelu``, :278-297)."""
 
     def __init__(self, in_channels: int, features: int,
                  pad_mode: str = "same"):
@@ -109,10 +156,15 @@ class ConvBnRelu(nn.Module):
                                 bias=False)
         self.BatchNorm_0 = batch_norm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pad_mode == "reference":
-            x = reference_pad(x, 3, 3)
-        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+    def forward(self, x: Union[torch.Tensor, List[torch.Tensor]],
+                conv: Conv = F.conv2d) -> torch.Tensor:
+        if isinstance(x, (list, tuple)):
+            y = sliced_concat_conv(x, self.Conv_0.weight, conv, self.pad_mode)
+        else:
+            if self.pad_mode == "reference":
+                x = reference_pad(x, 3, 3)
+            y = apply_conv(conv, self.Conv_0, x)
+        return F.relu(self.BatchNorm_0(y))
 
 
 class ChannelSELayer(nn.Module):
@@ -143,10 +195,11 @@ class SpatialSELayer(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Upsample -> concat skip -> 2x ConvBnRelu -> relu(cSE + sSE).
+    """Upsample -> skip concat -> 2x ConvBnRelu -> relu(cSE + sSE).
 
-    The JAX package's sliced concat (``SlicedConcatConvBnRelu``) is the
-    same math with the same kernel parameter; the port concatenates."""
+    ``sliced=True`` is the JAX package's ``use_sliced_concat``
+    (:300-340): the first conv takes the upsampled input and the skip as
+    two branches instead of their concat."""
 
     def __init__(self, in_channels: int, skip_channels: int,
                  middle_features: int, features: int, pad_mode: str = "same",
@@ -160,10 +213,11 @@ class DecoderBlock(nn.Module):
         self.ChannelSELayer_0 = ChannelSELayer(features)
         self.SpatialSELayer_0 = SpatialSELayer(features)
 
-    def forward(self, x: torch.Tensor,
-                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                conv: Conv = F.conv2d, sliced: bool = False) -> torch.Tensor:
         x = upsample2x(x, mode=self.upsample_mode)
         if skip is not None:
-            x = torch.cat([x, skip.to(x.dtype)], dim=1)
-        x = self.ConvBnRelu_1(self.ConvBnRelu_0(x))
+            branches = [x, skip.to(x.dtype)]
+            x = branches if sliced else torch.cat(branches, dim=1)
+        x = self.ConvBnRelu_1(self.ConvBnRelu_0(x, conv), conv)
         return F.relu(self.ChannelSELayer_0(x) + self.SpatialSELayer_0(x))

@@ -9,7 +9,9 @@ explicit as in the JAX package: (3, 3) on the stem, (1, 1) on every 3x3
 conv, none on the 1x1 stride-2 downsample.
 
 Names copy the flax scopes; ``bn1``/``bn2``/``downsample_bn`` are the JAX
-package's ``_BN`` wrappers, each holding one ``BatchNorm_0``.
+package's ``_BN`` wrappers, each holding one ``BatchNorm_0``. Every conv,
+the stem's included, goes through the ``conv`` callable the trunk passes
+down (the JAX package's ``conv_fn``, :89-113, :184-199).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from salt_tpu_torch.models.blocks import batch_norm
+from salt_tpu_torch.models.blocks import Conv, apply_conv, batch_norm
 
 RESNET_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 RESNET_WIDTHS = (64, 128, 256, 512)
@@ -49,10 +51,11 @@ class BasicBlock(nn.Module):
                                              stride=stride, bias=False)
             self.downsample_bn = _BN(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = (self.downsample_bn(self.downsample_conv(x))
+    def forward(self, x: torch.Tensor, conv: Conv = F.conv2d) -> torch.Tensor:
+        y = F.relu(self.bn1(apply_conv(conv, self.conv1, x)))
+        y = self.bn2(apply_conv(conv, self.conv2, y))
+        residual = (self.downsample_bn(apply_conv(conv, self.downsample_conv,
+                                                  x))
                     if self.has_downsample else x)
         return F.relu(y + residual)
 
@@ -81,13 +84,14 @@ class ResNetEncoder(nn.Module):
                 cin = w
             self.stage_names.append(names)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor,
+                conv: Conv = F.conv2d) -> Tuple[torch.Tensor, ...]:
+        x = F.relu(self.bn1(apply_conv(conv, self.conv1, x)))
         if self.pool0:
             x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = []
         for names in self.stage_names:
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, conv)
             feats.append(x)
         return tuple(feats)

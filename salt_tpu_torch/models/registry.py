@@ -5,15 +5,19 @@
 
 The port builds ``UNetResNet`` only; every other architecture the JAX
 package registers raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+that ports it. ``model.pallas_conv`` selects the infer form's conv
+callable (:func:`infer_conv_fn`, the counterpart of ``_conv_fn``,
+``salt_tpu/models/registry.py:35-52``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from salt_tpu_torch.core.config import ModelConfig
+from salt_tpu_torch.ops.conv_pair import make_conv_fn
 
 _MODE_CHOICES = {
     # string knobs are matched with == in the blocks; a typo silently
@@ -35,6 +39,15 @@ NOT_PORTED = ("SaltUNet", "SaltLinkNet", "UNetSeResNet", "UNetSeResNetXt",
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def infer_conv_fn(cfg: ModelConfig):
+    """``F.conv2d`` for ``pallas_conv="off"``; for "on" and "auto" the
+    dispatch that sends the eligible convs to the conv kernel. "auto"
+    means the kernel wherever the tensors lie on the card, as it means
+    the Pallas kernel on any device but a CPU in the JAX package; on the
+    CPU both take the kernel's plain version."""
+    return F.conv2d if cfg.pallas_conv == "off" else make_conv_fn()
+
+
 def build_model(cfg: ModelConfig) -> nn.Module:
     """An fp32 module in eval mode; ``set_compute_dtype`` casts it."""
     for field, choices in _MODE_CHOICES.items():
@@ -51,18 +64,16 @@ def build_model(cfg: ModelConfig) -> nn.Module:
     if cfg.quant_bits:
         raise NotImplementedError("model.quant_bits: int8 serving is not "
                                   "ported yet (ROADMAP.md Queue A item 15)")
-    if cfg.pallas_conv == "on":
-        raise NotImplementedError(
-            "model.pallas_conv='on': the pair-packed conv kernel is not "
-            "ported yet (ROADMAP.md Queue B row 3); 'auto' and 'off' use "
-            "the plain convolutions")
     from salt_tpu_torch.models.unet import UNetResNet
     model = UNetResNet(encoder_depth=cfg.encoder_depth or 34,
                        num_classes=cfg.num_classes,
                        use_hypercolumn=cfg.use_hypercolumn, pool0=cfg.pool0,
                        pad_mode=cfg.conv_pad_mode,
                        upsample_mode=cfg.upsample_mode,
-                       dropout_2d=cfg.dropout_2d)
+                       dropout_2d=cfg.dropout_2d,
+                       hypercolumn_impl=cfg.hypercolumn_impl,
+                       decoder_impl=cfg.decoder_impl,
+                       infer_conv=infer_conv_fn(cfg))
     return model.eval()
 
 

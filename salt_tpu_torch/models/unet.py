@@ -17,19 +17,28 @@ input and the logits come out fp32 in both, as in the JAX package:
   the trunk computes in ``training.dtype`` under ``torch.autocast``, so
   the optimizer never updates a bf16 copy.
 
+Two forms of one module, as the JAX runner builds two models over one
+parameter tree (``salt_tpu/train/steps.py:62-67``): ``forward(x)`` is the
+train form (literal concats, plain convs: training and the validation
+loss); ``forward(x, infer=True)`` the infer form (the predict steps):
+the config's ``decoder_impl`` / ``hypercolumn_impl`` ("sum": the sliced
+concat of ``blocks.sliced_concat_conv``, the default) and its conv
+callable (``model.pallas_conv``). Both read the same parameter tensors.
+
 ``dropout_2d`` is channel dropout on enc5 in train mode (flax
 ``nn.Dropout(broadcast_dims=(1, 2))``), its mask drawn from the
 generator passed to ``forward``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from salt_tpu_torch.models.blocks import ConvBnRelu, DecoderBlock, upsample2x
+from salt_tpu_torch.models.blocks import (Conv, ConvBnRelu, DecoderBlock,
+                                          upsample2x)
 from salt_tpu_torch.models.encoders import RESNET_WIDTHS, ResNetEncoder
 
 
@@ -37,9 +46,14 @@ class UNetTrunk(nn.Module):
     def __init__(self, encoder_depth: int = 34, num_classes: int = 2,
                  use_hypercolumn: bool = True, pool0: bool = False,
                  bottom_channels: int = 512, pad_mode: str = "same",
-                 upsample_mode: str = "half_pixel", dropout_2d: float = 0.0):
+                 upsample_mode: str = "half_pixel", dropout_2d: float = 0.0,
+                 hypercolumn_impl: str = "sum", decoder_impl: str = "sum",
+                 infer_conv: Conv = F.conv2d):
         super().__init__()
         b = bottom_channels
+        self.hypercolumn_impl = hypercolumn_impl
+        self.decoder_impl = decoder_impl
+        self.infer_conv = infer_conv
         self.dropout_2d = dropout_2d
         self.autocast_dtype: Optional[torch.dtype] = None
         c2, c3, c4, c5 = RESNET_WIDTHS
@@ -79,13 +93,15 @@ class UNetTrunk(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[B, 3, H, W] -> fp32 logits [B, num_classes, H, W]."""
+                generator: Optional[torch.Generator] = None,
+                infer: bool = False) -> torch.Tensor:
+        """[B, 3, H, W] -> fp32 logits [B, num_classes, H, W]; the infer
+        form with ``infer=True``."""
         if self.autocast_dtype is None:
-            y = self._trunk(x.to(self.compute_dtype), generator)
+            y = self._trunk(x.to(self.compute_dtype), generator, infer)
         else:
             with torch.autocast(x.device.type, dtype=self.autocast_dtype):
-                y = self._trunk(x.to(torch.float32), generator)
+                y = self._trunk(x.to(torch.float32), generator, infer)
         return self.head(y.to(torch.promote_types(y.dtype, torch.float32)))
 
     def _channel_dropout(self, x: torch.Tensor,
@@ -95,33 +111,42 @@ class UNetTrunk(nn.Module):
                           device=x.device) < keep
         return torch.where(mask, x / keep, 0.0)
 
-    def _trunk(self, x: torch.Tensor,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
-        enc2, enc3, enc4, enc5 = self.encoder(x)
+    def _trunk(self, x: torch.Tensor, generator: Optional[torch.Generator],
+               infer: bool) -> torch.Tensor:
+        conv = self.infer_conv if infer else F.conv2d
+        sliced = infer and self.decoder_impl == "sum"
+        enc2, enc3, enc4, enc5 = self.encoder(x, conv)
         if self.dropout_2d > 0 and self.training:
             enc5 = self._channel_dropout(enc5, generator)
-        center = self.center_conv2(self.center_conv1(enc5))
+        center = self.center_conv2(self.center_conv1(enc5, conv), conv)
         center = F.avg_pool2d(center, 2, stride=2)
-        dec5 = self.dec5(center, enc5)
-        dec4 = self.dec4(dec5, enc4)
-        dec3 = self.dec3(dec4, enc3)
-        dec2 = self.dec2(dec3, enc2)
-        dec1 = self.dec1(dec2)
+        dec5 = self.dec5(center, enc5, conv, sliced)
+        dec4 = self.dec4(dec5, enc4, conv, sliced)
+        dec3 = self.dec3(dec4, enc3, conv, sliced)
+        dec2 = self.dec2(dec3, enc2, conv, sliced)
+        head: Union[torch.Tensor, List[torch.Tensor]] = self.dec1(
+            dec2, None, conv)
         if self.use_hypercolumn:
             um = self.upsample_mode
-            dec1 = torch.cat([dec1,
-                              upsample2x(dec2, 2, um),
-                              upsample2x(dec3, 4, um),
-                              upsample2x(dec4, 8, um),
-                              upsample2x(dec5, 16, um)], dim=1)
-        return self.final_conv(dec1)
+            head = [head,
+                    upsample2x(dec2, 2, um),
+                    upsample2x(dec3, 4, um),
+                    upsample2x(dec4, 8, um),
+                    upsample2x(dec5, 16, um)]
+            if not (infer and self.hypercolumn_impl == "sum"):
+                head = torch.cat(head, dim=1)
+        return self.final_conv(head, conv)
 
 
 def UNetResNet(encoder_depth: int = 34, num_classes: int = 2,
                use_hypercolumn: bool = True, pool0: bool = False,
                pad_mode: str = "same", upsample_mode: str = "half_pixel",
-               dropout_2d: float = 0.0) -> UNetTrunk:
+               dropout_2d: float = 0.0, hypercolumn_impl: str = "sum",
+               decoder_impl: str = "sum",
+               infer_conv: Conv = F.conv2d) -> UNetTrunk:
     return UNetTrunk(encoder_depth=encoder_depth, num_classes=num_classes,
                      use_hypercolumn=use_hypercolumn, pool0=pool0,
                      bottom_channels=512, pad_mode=pad_mode,
-                     upsample_mode=upsample_mode, dropout_2d=dropout_2d)
+                     upsample_mode=upsample_mode, dropout_2d=dropout_2d,
+                     hypercolumn_impl=hypercolumn_impl,
+                     decoder_impl=decoder_impl, infer_conv=infer_conv)

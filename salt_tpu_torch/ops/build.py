@@ -27,7 +27,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 #: kernel name -> source file under csrc/
-SOURCES = {"preprocess": "preprocess.cu", "bitonic_sort": "bitonic_sort.cu"}
+SOURCES = {"preprocess": "preprocess.cu", "bitonic_sort": "bitonic_sort.cu",
+           "conv3x3_pair": "conv3x3_pair.cu"}
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

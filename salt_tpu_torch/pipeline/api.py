@@ -1,8 +1,14 @@
-"""Experiment orchestration: single-fold training (counterpart of the
-``train`` path of ``salt_tpu/pipeline/api.py`` :53-246).
+"""Experiment orchestration: train / evaluate / predict / CV ensembles
+(counterpart of ``salt_tpu/pipeline/api.py``).
 
-- Training uses the FIRST depth-stratified fold (reference:
-  main.py:458-462), with the reference's DEV_MODE subsampling.
+- Single-fold train and evaluate use the FIRST depth-stratified fold
+  (reference: main.py:458-462), with the reference's DEV_MODE subsampling.
+- The CV loops train (or not) every fold into ``checkpoints/
+  network_fold_<i>/``, then predict each fold's validation split and, with
+  a test bundle, the test set from the fold's persisted ``best.npz``; the
+  fold test probabilities are averaged before the threshold.
+- Evaluation reloads the persisted best checkpoint rather than reusing
+  in-memory weights; each fold's weights go to the device once.
 - Checkpoints go under ``checkpoints/network/`` in the flat format both
   packages read; the full config is persisted as ``config.json`` so
   ``serve`` (either package's) rebuilds the trained network from the
@@ -11,22 +17,26 @@
   port's own Adam state), ``execution.fine_tuning`` restarts from
   ``best``.
 
-The CV loops, ``evaluate`` / ``predict`` and auxiliary data are not
-ported yet (ROADMAP.md Queue A).
+Not ported yet, each raising ``NotImplementedError``: auxiliary data
+(ROADMAP.md Queue A item 16), ``parallel.fold_parallel`` (item 17) and the
+int8 gate of ``model.quant_bits`` (item 15, refused by the model
+registry).
 """
 from __future__ import annotations
 
-from typing import List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from salt_tpu_torch.core.config import Config
-from salt_tpu_torch.core.experiment import Experiment
+from salt_tpu_torch.core.experiment import Experiment, add_fold_suffix
 from salt_tpu_torch.core.logging import get_logger
 from salt_tpu_torch.data.bundle import DataBundle
 from salt_tpu_torch.data.kfold import KFoldBySortedValue
+from salt_tpu_torch.metrics.iout import batch_iou_iout
 from salt_tpu_torch.models.convert import load_flax_flat
+from salt_tpu_torch.ops.rle import create_submission
 from salt_tpu_torch.train.callbacks import (CallbackList, ChannelLogger,
                                             EarlyStopping, ExperimentTiming,
                                             ExponentialLRScheduler,
@@ -170,3 +180,163 @@ def train(config: Config, experiment: Experiment, bundle: DataBundle,
         valid_b = valid_b.dev_sample(config.execution.dev_mode_size // 2,
                                      config.execution.seed)
     return _fit_fold(config, experiment, NETWORK, train_b, valid_b, runner)
+
+
+def _binarize(probs: np.ndarray, threshold: float) -> List[np.ndarray]:
+    """Channel-1 thresholding (reference: postprocessing.py:41-43)."""
+    return [(p[1] > threshold).astype(np.uint8) for p in probs]
+
+
+def calculate_scores(y_true, y_pred) -> Tuple[float, float]:
+    """(IoU, IOUT) over mask lists, fp32 per image as the JAX package's
+    batched path computes them (reference: main.py:867-870)."""
+    per_iou, per_iout = batch_iou_iout(torch.from_numpy(np.stack(y_true)),
+                                       torch.from_numpy(np.stack(y_pred)))
+    return float(np.mean(per_iou.numpy())), float(np.mean(per_iout.numpy()))
+
+
+def _predict_bundles(runner: SegmentationRunner, experiment: Experiment,
+                     name: str, *bundles: DataBundle) -> List[np.ndarray]:
+    """The persisted best weights of ``name``, placed on the device once,
+    over each of ``bundles``: fp32 [N, 2, 101, 101] each."""
+    model = runner.restore(experiment.load_params(name))
+    return [runner.predict_dataset(model, b.images,
+                                   tta=runner.config.postpro.use_tta)
+            for b in bundles]
+
+
+def evaluate(config: Config, experiment: Experiment, bundle: DataBundle,
+             device: Union[str, torch.device] = "cuda") -> Dict[str, float]:
+    """Evaluate the persisted model on the first fold's validation split
+    (reference: main.py:491-537)."""
+    _, valid_idx = _first_fold(config, bundle)
+    valid_b = bundle.take(valid_idx)
+    if config.execution.dev_mode:
+        valid_b = valid_b.dev_sample(config.execution.dev_mode_size,
+                                     config.execution.seed)
+    runner = SegmentationRunner(config, device)
+    probs, = _predict_bundles(runner, experiment, NETWORK, valid_b)
+    y_pred = _binarize(probs, config.postpro.threshold_masks)
+    iou, iout = calculate_scores(list(valid_b.masks), y_pred)
+    logger.info("IOU score on validation is %s", iou)
+    logger.info("IOUT score on validation is %s", iout)
+    experiment.save_json("validation_results", {"iou": iou, "iout": iout})
+    experiment.save_predictions("validation_predictions",
+                                valid_b.meta["id"].tolist(), probs)
+    return {"iou": iou, "iout": iout}
+
+
+def _write_submission(experiment: Experiment, meta, masks) -> str:
+    path = experiment.directory + "/submission.csv"
+    create_submission(meta, masks).to_csv(path, index=None, encoding="utf-8")
+    logger.info("submission saved to %s", path)
+    return path
+
+
+def predict(config: Config, experiment: Experiment, test_bundle: DataBundle,
+            suffix: str = "",
+            device: Union[str, torch.device] = "cuda") -> np.ndarray:
+    """Predict the test set and write submission.csv
+    (reference: main.py:540-575)."""
+    if config.execution.dev_mode:
+        test_bundle = test_bundle.dev_sample(config.execution.dev_mode_size,
+                                             config.execution.seed)
+    runner = SegmentationRunner(config, device)
+    probs, = _predict_bundles(runner, experiment, NETWORK + suffix,
+                              test_bundle)
+    _write_submission(experiment, test_bundle.meta,
+                      _binarize(probs, config.postpro.threshold_masks))
+    return probs
+
+
+def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
+             test_bundle: Optional[DataBundle], do_train: bool,
+             device: Union[str, torch.device] = "cuda") -> Dict:
+    """Every fold: fit (``do_train``), predict its validation split and
+    score it, predict the test bundle; then ``cv_scores.json``, the
+    out-of-fold predictions and, with a test bundle, the submission
+    (reference: main.py:578-863)."""
+    if do_train and config.parallel.fold_parallel:
+        raise NotImplementedError(
+            "parallel.fold_parallel: training all folds at once is not "
+            "ported yet (ROADMAP.md Queue A item 17)")
+    if config.execution.dev_mode:
+        bundle = bundle.dev_sample(config.execution.dev_mode_size,
+                                   config.execution.seed)
+        if test_bundle is not None:
+            test_bundle = test_bundle.dev_sample(
+                config.execution.dev_mode_size, config.execution.seed)
+    cv = KFoldBySortedValue(n_splits=config.execution.n_cv_splits)
+    fold_iou, fold_iout = [], []
+    oof_ids: List[str] = []
+    oof_images: List[np.ndarray] = []
+    test_preds: List[np.ndarray] = []
+    runner = SegmentationRunner(config, device)
+    for fold_id, (train_idx, valid_idx) in enumerate(
+            cv.split(bundle.meta["z"].values)):
+        name = add_fold_suffix(NETWORK, fold_id)
+        train_b, valid_b = bundle.take(train_idx), bundle.take(valid_idx)
+        logger.info("Started fold %d", fold_id)
+        if do_train:
+            _fit_fold(config, experiment, name,
+                      _with_auxiliary(config, train_b), valid_b, runner)
+        probs = _predict_bundles(runner, experiment, name, valid_b,
+                                 *([] if test_bundle is None else [test_bundle]))
+        probs_valid = probs[0]
+        y_pred = _binarize(probs_valid, config.postpro.threshold_masks)
+        iou, iout = calculate_scores(list(valid_b.masks), y_pred)
+        logger.info("Fold %d IOU %s IOUT %s", fold_id, iou, iout)
+        fold_iou.append(iou)
+        fold_iout.append(iout)
+        oof_ids.extend(valid_b.meta["id"].tolist())
+        oof_images.extend(list(probs_valid))
+        test_preds.extend(probs[1:])
+
+    scores = {"iou_mean": float(np.mean(fold_iou)),
+              "iou_std": float(np.std(fold_iou)),
+              "iout_mean": float(np.mean(fold_iout)),
+              "iout_std": float(np.std(fold_iout)),
+              "fold_iou": fold_iou, "fold_iout": fold_iout}
+    logger.info("IOU mean %s std %s; IOUT mean %s std %s",
+                scores["iou_mean"], scores["iou_std"],
+                scores["iout_mean"], scores["iout_std"])
+    experiment.save_json("cv_scores", scores)
+    if test_bundle is not None and test_preds:
+        save_predictions(config, experiment, oof_ids, oof_images,
+                         test_bundle, test_preds)
+    elif oof_images:
+        experiment.save_predictions("out_of_fold_train_predictions",
+                                    oof_ids, np.stack(oof_images))
+    return scores
+
+
+def save_predictions(config: Config, experiment: Experiment,
+                     oof_ids, oof_images, test_bundle: DataBundle,
+                     test_preds: List[np.ndarray]) -> None:
+    """Fold-mean test probabilities -> binarize -> submission; persist the
+    out-of-fold train and test predictions (reference: main.py:892-913)."""
+    averaged = np.mean(np.stack(test_preds), axis=0)   # [N, 2, 101, 101]
+    experiment.save_predictions("out_of_fold_train_predictions",
+                                oof_ids, np.stack(oof_images))
+    experiment.save_predictions("out_of_fold_test_predictions",
+                                test_bundle.meta["id"].tolist(), averaged)
+    _write_submission(experiment, test_bundle.meta,
+                      _binarize(averaged, config.postpro.threshold_masks))
+
+
+def train_evaluate_cv(config, experiment, bundle, device="cuda"):
+    return _cv_loop(config, experiment, bundle, None, True, device)
+
+
+def train_evaluate_predict_cv(config, experiment, bundle, test_bundle,
+                              device="cuda"):
+    return _cv_loop(config, experiment, bundle, test_bundle, True, device)
+
+
+def evaluate_cv(config, experiment, bundle, device="cuda"):
+    return _cv_loop(config, experiment, bundle, None, False, device)
+
+
+def evaluate_predict_cv(config, experiment, bundle, test_bundle,
+                        device="cuda"):
+    return _cv_loop(config, experiment, bundle, test_bundle, False, device)

@@ -18,6 +18,12 @@ same steps eagerly on ``device``.
   backward, Adam. ``_train_inputs`` and :meth:`update` are the two halves
   of :meth:`train_step`, so each can be held against JAX on its own.
 
+Two forms of one model, as in the JAX runner (:55-67): the predict steps
+run the infer form (``model(x, infer=True)``: the config's
+``decoder_impl`` / ``hypercolumn_impl`` and ``model.pallas_conv``'s conv
+dispatch), training and :meth:`val_loss_step` the train form (literal
+concats, plain convs). Both read the one set of parameters on the device.
+
 Serving models are ``nn.Module``s in eval mode, cast to
 ``training.dtype`` (the fp32 head aside), in channels_last memory,
 placed on ``device`` once by :meth:`init_model` / :meth:`restore`. A
@@ -27,7 +33,7 @@ model being trained keeps fp32 parameters and computes in
 from __future__ import annotations
 
 from functools import cached_property
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -87,11 +93,14 @@ class SegmentationRunner:
         """A seeded model on the device (``models.registry.init_seeded``)."""
         return self.place(init_seeded(build_model(self.config.model), seed))
 
-    def restore(self, checkpoint: str) -> nn.Module:
-        """A flat-npz checkpoint (either package's ``best.npz``), moved to
-        the device once."""
+    def restore(self, checkpoint: Union[str, Dict[str, np.ndarray]]
+                ) -> nn.Module:
+        """A flat-npz checkpoint (either package's ``best.npz``, or its
+        arrays), moved to the device once."""
+        if isinstance(checkpoint, str):
+            checkpoint = load_flat_npz(checkpoint)
         model = build_model(self.config.model)
-        load_flax_flat(model, load_flat_npz(checkpoint))
+        load_flax_flat(model, checkpoint)
         return self.place(model)
 
     @cached_property
@@ -178,7 +187,7 @@ class SegmentationRunner:
                       masks_u8: torch.Tensor) -> torch.Tensor:
         """Validation loss in network space on inference-preprocessed
         batches (the preprocess kernel on the card); ``model`` in eval
-        mode."""
+        mode, in the train form as in the JAX runner."""
         x = self._infer_inputs(images_u8)
         m = (masks_u8 > 0).to(torch.float32)
         if self._pp["loader_mode"] == "resize_and_pad":
@@ -235,7 +244,7 @@ class SegmentationRunner:
     def predict_step(self, model: nn.Module,
                      images_u8: torch.Tensor) -> torch.Tensor:
         """uint8 [B, 101, 101] -> fp32 probabilities [B, 2, 101, 101]."""
-        logits = model(self._infer_inputs(images_u8))
+        logits = model(self._infer_inputs(images_u8), infer=True)
         return self._to_image_space(torch.sigmoid(logits.float()))
 
     @torch.no_grad()
@@ -250,7 +259,7 @@ class SegmentationRunner:
                                 pp.tta_rotation, pp.tta_color_shift_runs)
         b = images_u8.shape[0]
         big = torch.cat([tta_transform(images_u8, s) for s in specs], dim=0)
-        logits = model(self._infer_inputs(big))
+        logits = model(self._infer_inputs(big), infer=True)
         probs = torch.sigmoid(logits.float())                 # [T*B,2,H,W]
         outs = [tta_inverse_transform(probs[i * b:(i + 1) * b], s)
                 for i, s in enumerate(specs)]

@@ -1,6 +1,7 @@
-"""Tests that need the card: the preprocess and bitonic sort CUDA kernels
-against their plain versions, their launch counts and input checks, a
-small serve step on the card against the CPU, and one bf16 train step.
+"""Tests that need the card: the preprocess, bitonic sort and 3x3 conv
+CUDA kernels against their plain versions, their launch counts and input
+checks, a small serve step on the card against the CPU, a predict step
+through the conv kernel, and one bf16 train step.
 Marked ``cuda``; they skip where CUDA is absent and run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -119,6 +120,90 @@ def test_sort_kernel_refuses_bad_inputs(cuda):
     big_p = torch.zeros(2, 2048, dtype=torch.int32, device=cuda)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         sort_desc(big_k, big_p)
+
+
+def _conv_inputs(b, c, hx, wx, seed=0):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, hx, wx, c).astype(np.float32))
+    w = torch.from_numpy((rng.randn(64, c, 3, 3) / np.sqrt(9 * c))
+                         .astype(np.float32))
+    return x.permute(0, 3, 1, 2).to(torch.bfloat16), w.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,c,hx,wx,halo", [
+    (2, 64, 64, 64, False), (2, 64, 66, 66, True), (1, 64, 32, 32, False),
+    (1, 32, 40, 48, False), (1, 320, 64, 64, False), (3, 64, 130, 130, True),
+    (1, 16, 33, 70, False)])
+def test_conv_kernel_matches_plain_version(cuda, b, c, hx, wx, halo):
+    """bf16 within one bf16 ulp of the plain version (fp32 conv with TF32
+    off, rounded to bf16), plus 2 K 2^-24 sum|x||w| (K = 9 C) where
+    cancellation leaves a value tiny next to its terms: both sum the same
+    exact products in fp32, in another order."""
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops.conv_pair import conv3x3_pair
+    x, w = _conv_inputs(b, c, hx, wx, seed=c + hx)
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    w = w.to(cuda)
+    before = ck.launches
+    with torch.no_grad():
+        got = ck.conv3x3_pair_kernel(x, w, halo=halo)
+        torch.cuda.synchronize()
+        want = conv3x3_pair(x, w, halo=halo).float()
+        terms = conv3x3_pair(x.float().abs(), w.float().abs(), halo=halo)
+    assert ck.launches == before + 1
+    h, wd = (hx - 2, wx - 2) if halo else (hx, wx)
+    assert got.shape == (b, 64, h, wd) and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _, exp = torch.frexp(want)
+    ulp = torch.where(want == 0, torch.zeros_like(want),
+                      torch.ldexp(torch.ones_like(want), exp - 8))
+    tol = ulp + 2 * 9 * c * 2.0 ** -24 * terms
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_conv_kernel_refuses_bad_inputs(cuda):
+    from salt_tpu_torch.ops import conv_kernel as ck
+    x, w = _conv_inputs(1, 64, 32, 32)
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    w = w.to(cuda)
+    before = ck.launches
+    with pytest.raises(TypeError):
+        ck.conv3x3_pair_kernel(x.float(), w.float())
+    with pytest.raises(ValueError, match="channels_last"):
+        ck.conv3x3_pair_kernel(x.contiguous(), w)
+    xs, ws = _conv_inputs(1, 24, 32, 32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ck.conv3x3_pair_kernel(
+            xs.to(cuda).contiguous(memory_format=torch.channels_last),
+            ws.to(cuda))
+    with pytest.raises(RuntimeError, match="inference-only"):
+        ck.conv3x3_pair_kernel(x.float().requires_grad_(), w.float())
+    assert ck.launches == before
+
+
+@pytest.mark.parametrize("pad_mode", ["same", "reference"])
+def test_predict_step_with_conv_kernel(cuda, pad_mode):
+    """UNetResNet18, bf16 hflip-TTA predict step with model.pallas_conv
+    "on": the kernel launches 12 times per forward (4 encoder, 3 decoder,
+    5 head convs) and the probabilities stay within 2e-2 of "off" (bf16
+    rounding of a few convs in another order)."""
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.train.steps import SegmentationRunner
+    probs = {}
+    for mode in ("off", "on"):
+        cfg = default_config()
+        cfg.model.encoder_depth = 18
+        cfg.model.conv_pad_mode = pad_mode
+        cfg.model.pallas_conv = mode
+        runner = SegmentationRunner(cfg, device=cuda)
+        model = runner.init_model(seed=4)
+        before = ck.launches
+        probs[mode] = runner.predict_tta_step(model, _images(4, 5).to(cuda))
+        torch.cuda.synchronize()
+        assert ck.launches - before == (12 if mode == "on" else 0)
+    assert bool(torch.isfinite(probs["on"]).all())
+    torch.testing.assert_close(probs["on"], probs["off"], atol=2e-2, rtol=0)
 
 
 def test_bf16_train_step_keeps_fp32_params_that_move(cuda):

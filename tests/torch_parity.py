@@ -71,6 +71,38 @@ def seeded_jax_variables(model, seed=0):
     return unflatten_like(flat, variables), flat
 
 
+def numpy_jax_variables(model, seed=0):
+    """The variable tree of ``model`` (its shapes traced with
+    ``jax.eval_shape``: no flax init runs, which takes tens of seconds
+    eagerly on the CPU) filled from numpy seed ``seed``: conv and dense
+    kernels N(0, 1 / fan_in) (flax's lecun_normal scale), the BatchNorm
+    leaves and biases as :func:`seeded_jax_variables` draws them.
+    Returns (variables, flat)."""
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((2, 128, 128, 3), jnp.float32),
+        train=False))
+    leaves, _ = jax.tree_util.tree_flatten_with_path(shapes)
+    rng = np.random.RandomState(seed)
+    flat = {}
+    for key, leaf in sorted(("/".join(_path_str(p) for p in path), leaf)
+                            for path, leaf in leaves):
+        shape = leaf.shape
+        name = key.rsplit("/", 1)[-1]
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            value = rng.randn(*shape) / np.sqrt(fan_in)
+        elif name in ("scale", "var"):
+            value = 0.8 + 0.4 * rng.rand(*shape)
+        elif name == "mean" or (name == "bias" and "BatchNorm" in key):
+            value = 0.1 * rng.randn(*shape)
+        elif name == "bias":
+            value = 0.05 * rng.randn(*shape)
+        else:
+            raise ValueError(f"no draw for the leaf {key}")
+        flat[key] = value.astype(np.float32)
+    return unflatten_like(flat, shapes), flat
+
+
 def seeded_images(n, seed=0):
     """Smooth uint8 101x101 images (a blurred random field, so masks have
     structure) from numpy seed ``seed``."""
