@@ -15,6 +15,14 @@ Phases (each raises on failure; the script then exits non-zero):
                 its plain PyTorch version on the card at the shapes its
                 path gives it, and its time beside the plain version's, a
                 library call's where there is one, and its bound;
+   probe path — the probe harnesses as a user runs them, at their full
+                size (``python -m salt_tpu_torch.tools.conv_probe`` and
+                ``conv_probe2``: B 64, H = W = 128), which launch the
+                im2col conv, pair-packed conv and matmul kernels;
+   probe kernels — those four kernels (rows 4-7 of PERF.md's table)
+                against their plain versions at the same size (bf16 one
+                ulp plus a cancellation floor, int8 bit for bit), timed
+                beside the plain version, a library call and the bound;
 4. model      — the flagship from seeded weights: fp32 forward on the card
                 (TF32 off) against the CPU in both forms (train; infer,
                 the sliced-concat sums), bf16 against fp32, and the bf16
@@ -22,6 +30,9 @@ Phases (each raises on failure; the script then exits non-zero):
                 convs;
 5. profile    — where one bf16 serve step's device time goes, with
                 ``model.pallas_conv`` "off" and "on";
+   ab         — ``python -m salt_tpu_torch.tools.ab_conv`` at batch 64:
+                the TTA step with the conv kernel off, on, on+res64 and
+                on+res128 from one seeded model;
 6. serve      — a 2-fold CV experiment directory of seeded weights and
                 2048 seeded PNGs through ``pipeline.serving.serve`` (hflip
                 TTA, batch 24, bf16), with "off" and then "on";
@@ -37,7 +48,8 @@ Phases (each raises on failure; the script then exits non-zero):
                 "off" on the same experiment directory: the same fold
                 scores and submission under the threshold-margin rule.
 Each path's kernel launch counts are set to 0 just before it runs and read
-just after. The script then prints one JSON line of kernel records and,
+just after (the probe harnesses' and the A/B's too). The script then
+prints one JSON line of kernel records and,
 last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA, or
 outside a checkout of the repository, it prints no result and exits
 non-zero.
@@ -57,6 +69,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 BF16_DENSE_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
+INT8_DENSE_OPS = 1979e12         # H100 SXM int8 tensor cores, dense
 
 N_SERVE_IMAGES = 2048
 N_FOLDS = 2
@@ -66,6 +79,7 @@ SORT_LENGTH = 2 * 128 * 128       # one image's logits in the Lovász hinge
 N_TRAIN_IMAGES = 480              # fold 0 of 6: 400 train / 80 valid
 TRAIN_EPOCHS = 2
 N_CV_IMAGES = 480                 # 6 folds of 400 train / 80 valid
+PROBE_BATCH, PROBE_SIZE = 64, 128  # the probe harnesses' B and H = W
 #: flagship convs the conv kernel takes per infer forward: 6 encoder
 #: layer1, 3 of dec2, 5 hypercolumn-head branches (all 64 -> 64)
 CONV_KERNEL_PER_FORWARD = 14
@@ -765,6 +779,290 @@ def phase_conv_kernel(dev):
             "launches": None, "max_abs_err": max_err, **head}
 
 
+def _probe_counts():
+    from salt_tpu_torch.ops import (conv128_kernel, conv64p_kernel,
+                                    matmul_kernel)
+    return dict(conv128=conv128_kernel.launches,
+                conv64p=conv64p_kernel.launches,
+                matmul=matmul_kernel.launches,
+                conv64p_v2=conv64p_kernel.launches_v2)
+
+
+def phase_probe_path(card):
+    """The probe harnesses at their full size, as a user runs them: the
+    conv probe (the pair-packed conv at tile_h 16 and 32, the im2col conv
+    at tile_h 16 and 32, the matmul at two GEMMs; 3 windows of 20
+    launches each after one warm-up, and one correctness call per conv)
+    and the variant sweep (5 variants: one correctness call, one warm-up,
+    2 windows of 20). Returns the four kernels' launch counts."""
+    from salt_tpu_torch.ops import (conv128_kernel, conv64p_kernel,
+                                    matmul_kernel)
+    from salt_tpu_torch.tools import conv_probe, conv_probe2
+    conv128_kernel.launches = conv64p_kernel.launches = 0
+    conv64p_kernel.launches_v2 = matmul_kernel.launches = 0
+    t0 = time.perf_counter()
+    conv_probe.main(["--device", "cuda"])
+    conv_probe2.main(["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = _probe_counts()
+    expected = dict(conv128=2 * 61 + 1, conv64p=2 * 61 + 1, matmul=2 * 61,
+                    conv64p_v2=5 * (1 + 1 + 2 * 20))
+    if counts != expected:
+        raise AssertionError(f"probe kernels launched {counts}, expected "
+                             f"{expected}")
+    log("probe_path", wall_s=f"{wall:.3f}", **counts, card=repr(card))
+    return counts
+
+
+def _ulp_check(name, got, want, terms, k):
+    """|got - want| <= one bf16 ulp of want + 2 K 2^-24 sum|x||w| (the rule
+    of phase_conv_kernel); returns max |got - want|."""
+    import torch
+    want = want.float()
+    _, exp = torch.frexp(want)
+    ulp = torch.where(want == 0, torch.zeros_like(want),
+                      torch.ldexp(torch.ones_like(want), exp - 8))
+    tol = ulp + 2 * k * 2.0 ** -24 * terms
+    err = (got.float() - want).abs()
+    worst = float((err / tol.clamp_min(1e-30)).max())
+    log("probe_kernel", check=name, max_abs_err=float(err.max()),
+        worst_err_over_tol=f"{worst:.3f}", over_one_ulp=int((err > ulp).sum()),
+        elements=err.numel())
+    if got.shape != want.shape or not worst <= 1.0:
+        raise AssertionError(f"{name}: error {worst} x the tolerance")
+    return float(err.max())
+
+
+def gemm_bound(nbytes, ops, ops_rate=BF16_DENSE_FLOPS):
+    """(bound ms, "bytes" | "operations") of work that moves ``nbytes``
+    and does ``ops`` operations at ``ops_rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _timed(kernel, match, plain, library):
+    """ms, plain_ms, library_ms (None without a library call) from the
+    profiler; CUDA events where the profiler records no device time."""
+    import torch
+    with torch.no_grad():
+        t = dict(ms=device_ms(kernel, match=match, iters=20),
+                 plain_ms=device_ms(plain, iters=5),
+                 library_ms=device_ms(library, iters=20) if library else None)
+        if 0.0 in t.values():
+            t = dict(ms=time_ms(kernel, 20, 3), plain_ms=time_ms(plain, 5, 1),
+                     library_ms=time_ms(library, 20, 3) if library else None)
+            t["timed_by"] = "events"
+        else:
+            t["timed_by"] = "profiler"
+    return t
+
+
+def phase_probe_kernels(dev, card):
+    """The four probe kernels on the card at the harnesses' full size,
+    bf16 within one bf16 ulp plus 2 K 2^-24 sum|x||w| of their plain
+    versions (K = 768, 1152 and the matmul's K), int8 bit for bit:
+    - pair-packed conv, x_packed [64,130,72,128], with a w_packed random in
+      every slot (the structural ones too): row 5 at tile_h 16, 32 and 64,
+      row 7 at the same with db off and on, in bf16 and int8;
+    - im2col conv, x [64,130,136,128] (columns 130..135 NaN), w_flat
+      [1152,128]: tile_h 16 and 32;
+    - matmul [524288,768]x[768,128] and [1048576,576]x[576,64], tile_m 2048.
+    Times from the profiler with weights packed from a 3x3 kernel, so that
+    ``F.conv2d`` (cuDNN, bf16, channels_last, VALID on the unpacked
+    input) computes the same function: row 5 at tile_h 16, row 7 at
+    tile_h 32 with db (and its int8 twin), row 4 at tile_h 16, row 6 at both
+    GEMMs; beside the plain version and the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from salt_tpu_torch.ops.conv128_kernel import make_conv128_kernel
+    from salt_tpu_torch.ops.conv64p_kernel import (make_conv64p_kernel,
+                                                   make_conv64p_v2)
+    from salt_tpu_torch.ops.matmul_kernel import make_matmul_kernel
+    from salt_tpu_torch.ops.probe_conv import (conv128_plain, conv64p_plain,
+                                               matmul_plain,
+                                               pack_pair_weights)
+    B, H, W = PROBE_BATCH, PROBE_SIZE, PROBE_SIZE
+    P, PO = (W + 16) // 2, W // 2
+    g = torch.Generator(dev).manual_seed(0)
+    cl = torch.channels_last
+    err = {}
+
+    # ---------- pair-packed conv: correctness, every weight slot live --
+    x = torch.rand(B, H + 2, P, 128, generator=g, device=dev).bfloat16()
+    wp = (torch.randn(768, 128, generator=g, device=dev) * 0.05).bfloat16()
+    with torch.no_grad():
+        want = conv64p_plain(x, wp, H, W)
+        terms = conv64p_plain(x.float().abs(), wp.float().abs(), H, W)
+        convs = [(f"conv64p th{th}", make_conv64p_kernel(th, H, W))
+                 for th in (16, 32, 64)]
+        convs += [(f"conv64p_v2 th{th}{' +db' if db else ''}",
+                   make_conv64p_v2(th, H, W, db=db))
+                  for th in (16, 32, 64) for db in (False, True)]
+        for name, fn in convs:
+            e = _ulp_check(name, fn(x, wp), want, terms, 768)
+            key = name.split()[0]
+            err[key] = max(err.get(key, 0.0), e)
+        del want, terms
+        xq = torch.randint(-127, 128, (B, H + 2, P, 128), generator=g,
+                           device=dev, dtype=torch.int8)
+        wq = torch.randint(-128, 128, (768, 128), generator=g, device=dev,
+                           dtype=torch.int8)
+        want = conv64p_plain(xq, wq, H, W)
+        for th in (16, 32, 64):
+            for db in (False, True):
+                got = make_conv64p_v2(th, H, W, db=db, int8=True)(xq, wq)
+                same = torch.equal(got, want)
+                log("probe_kernel", check=f"conv64p_v2 th{th} db={db} INT8",
+                    bit_identical=same)
+                if not same:
+                    raise AssertionError(f"int8 conv64p_v2 th{th} db={db}: "
+                                         "not bit-identical to the plain "
+                                         "version")
+        del want
+
+    # ---------- im2col conv: correctness --------------------------------
+    x4 = torch.randn(B, H + 2, W + 8, 128, generator=g, device=dev)
+    x4[:, :, W + 2:] = float("nan")
+    x4 = x4.bfloat16()
+    w4 = (torch.randn(1152, 128, generator=g, device=dev) / 1152 ** 0.5
+          ).bfloat16()
+    with torch.no_grad():
+        want = conv128_plain(x4, w4, H, W)
+        terms = conv128_plain(x4.float().abs(), w4.float().abs(), H, W)
+        for th in (16, 32):
+            err["conv128"] = max(err.get("conv128", 0.0), _ulp_check(
+                f"conv128 th{th}", make_conv128_kernel(th, H, W, 128, 128)(
+                    x4, w4), want, terms, 1152))
+        del want, terms
+
+    # ---------- matmul: correctness --------------------------------------
+    gemms = ((B * H * PO, 768, 128), (B * H * W, 576, 64))
+    mats = {}
+    for m, k, n in gemms:
+        a = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        b = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).bfloat16()
+        mats[m] = (a, b)
+        with torch.no_grad():
+            want = matmul_plain(a, b)
+            terms = matmul_plain(a.float().abs(), b.float().abs())
+            err["matmul"] = max(err.get("matmul", 0.0), _ulp_check(
+                f"matmul {m}x{k}x{n}", make_matmul_kernel(m, k, n)(a, b),
+                want, terms, k))
+        del want, terms
+
+    # ---------- times -----------------------------------------------------
+    rng = np.random.RandomState(1)
+    w3 = (rng.randn(3, 3, 64, 64) * 0.05).astype(np.float32)
+    wp3 = torch.from_numpy(pack_pair_weights(w3)).to(dev).bfloat16()
+    w_oihw = torch.from_numpy(w3).permute(3, 2, 0, 1).contiguous().to(
+        dev).bfloat16()
+    x_nchw = x.reshape(B, H + 2, 2 * P, 64)[:, :, :W + 2].contiguous(
+        ).permute(0, 3, 1, 2)
+    wq3 = torch.clamp(torch.round(wp3.float() / wp3.float().abs().max()
+                                  * 127), -127, 127).to(torch.int8)
+    c64_bytes = x.numel() * 2 + 768 * 128 * 2 + B * H * PO * 128 * 2
+    c64_ops = 2 * B * H * PO * 768 * 128
+    records = {}
+
+    def record(key, variant, kernel, match, plain, library, nbytes, ops,
+               ops_rate=BF16_DENSE_FLOPS):
+        t = _timed(kernel, match, plain, library)
+        bound_ms, bound_by = gemm_bound(nbytes, ops, ops_rate)
+        lib = t["library_ms"]
+        log("probe_kernel", name=key, variant=variant, ms=f"{t['ms']:.5f}",
+            plain_ms=f"{t['plain_ms']:.5f}",
+            library_ms=f"{lib:.5f}" if lib is not None else None,
+            bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, bytes=nbytes,
+            ops=ops, tops=f"{ops / t['ms'] / 1e9:.1f}",
+            roofline_share=f"{bound_ms / t['ms']:.3f}",
+            timed_by=t["timed_by"], card=repr(card))
+        rec = dict(variant=variant, ms=t["ms"], plain_ms=t["plain_ms"],
+                   library_ms=lib, bound_ms=bound_ms, bound_by=bound_by)
+        records.setdefault(key, rec)
+        return rec
+
+    conv5 = make_conv64p_kernel(16, H, W)
+    v2 = make_conv64p_v2(32, H, W, db=True)
+    v2q = make_conv64p_v2(32, H, W, db=True, int8=True)
+    library64 = lambda: F.conv2d(x_nchw, w_oihw)
+    record("conv64p", "th16", lambda: conv5(x, wp3), "PairPackedA",
+           lambda: conv64p_plain(x, wp3, H, W), library64, c64_bytes, c64_ops)
+    record("conv64p_v2", "th32 +db bf16", lambda: v2(x, wp3), "PairPackedA",
+           lambda: conv64p_plain(x, wp3, H, W), library64, c64_bytes, c64_ops)
+    record("conv64p_v2_int8", "th32 +db INT8", lambda: v2q(xq, wq3),
+           "PairPackedA", lambda: conv64p_plain(xq, wq3, H, W), None,
+           x.numel() + 768 * 128 + B * H * PO * 128 * 2, c64_ops,
+           INT8_DENSE_OPS)
+    conv4 = make_conv128_kernel(16, H, W, 128, 128)
+    x4v = x4[:, :, :W + 2].contiguous().permute(0, 3, 1, 2)
+    w4_oihw = w4.reshape(3, 3, 128, 128).permute(3, 2, 0, 1).contiguous()
+    record("conv128", "th16", lambda: conv4(x4, w4), "Im2colA",
+           lambda: conv128_plain(x4, w4, H, W),
+           lambda: F.conv2d(x4v, w4_oihw),
+           x4.numel() * 2 + w4.numel() * 2 + B * H * W * 128 * 2,
+           2 * B * H * W * 1152 * 128)
+    for m, k, n in gemms:
+        a, b = mats[m]
+        mm = make_matmul_kernel(m, k, n)
+        record("matmul", f"{m}x{k}x{n}", lambda: mm(a, b), "RowMajorA",
+               lambda: matmul_plain(a, b), lambda: torch.matmul(a, b),
+               (m * k + k * n + m * n) * 2, 2 * m * k * n)
+    sources = dict(
+        conv128=("salt_tpu_torch/csrc/conv128_im2col.cu",
+                 "tools/pallas_conv.py:35"),
+        conv64p=("salt_tpu_torch/csrc/conv64p.cu", "tools/pallas_conv.py:115"),
+        matmul=("salt_tpu_torch/csrc/matmul_bf16.cu",
+                "tools/pallas_conv.py:173"),
+        conv64p_v2=("salt_tpu_torch/csrc/conv64p.cu",
+                    "tools/pallas_conv2.py:53"))
+    out = {}
+    for key, (source, replaces) in sources.items():
+        rec = records[key]
+        out[key] = {"name": key, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": None,
+                    "max_abs_err": err[key], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"],
+                    "library_ms": rec["library_ms"],
+                    "variant": rec["variant"]}
+    int8 = records["conv64p_v2_int8"]
+    out["conv64p_v2"].update(int8_ms=int8["ms"],
+                             int8_plain_ms=int8["plain_ms"],
+                             int8_bound_ms=int8["bound_ms"])
+    return out
+
+
+
+def phase_ab(card):
+    """``python -m salt_tpu_torch.tools.ab_conv`` at batch 64, 2 windows of
+    3 steps: the flagship bf16 TTA step with the conv kernel off, on,
+    on+res64 and on+res128 from one seeded model. The kernel launches 14,
+    9 (6 encoder + 3 decoder convs at 64x64) and 5 (the head at 128x128)
+    times per step, and never "off"; every variant's probabilities within
+    0.05 of "off" (bf16 rounding of some convs in another order). Returns
+    the kernel's launches in the run."""
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.tools import ab_conv
+    ck.launches = 0
+    results = ab_conv.main(["--batches", "64", "--iters", "3", "--windows",
+                            "2"])[64]
+    launches = ck.launches
+    per_step = {name: r["launches"] for name, r in results.items()}
+    if per_step != {"off": 0, "on": 14, "on+res64": 9, "on+res128": 5}:
+        raise AssertionError(f"ab: conv kernel launches per step {per_step}")
+    if launches != 7 * (14 + 9 + 5):
+        raise AssertionError(f"ab: {launches} conv kernel launches")
+    worst = max(r["dprob"] for r in results.values())
+    if not worst <= 0.05:
+        raise AssertionError(f"ab: max |d prob| vs off {worst}")
+    log("ab", batch=64, launches=launches, card=repr(card),
+        **{f"{name}_ms": f"{r['ms']:.3f}" for name, r in results.items()},
+        **{f"{name}_dprob": r["dprob"] for name, r in results.items()})
+    return launches
+
+
 def _flat_grads(model):
     return {n: p.grad.detach().float().cpu() for n, p in
             model.named_parameters()}
@@ -1176,9 +1474,12 @@ def main():
     preprocess = phase_kernel(dev)
     sort = phase_sort_kernel(dev)
     conv = phase_conv_kernel(dev)
+    probe_launches = phase_probe_path(smi)
+    probes = phase_probe_kernels(dev, smi)
     phase_model(dev)
     phase_profile(dev, smi, "off")
     phase_profile(dev, smi, "on")
+    ab_launches = phase_ab(smi)
     serve_preprocess, serve_conv = phase_serve(dev, smi)
     phase_train_step(dev)
     train_sort, train_preprocess = phase_train(dev, smi)
@@ -1187,13 +1488,17 @@ def main():
     preprocess["launches"] = (serve_preprocess + train_preprocess
                               + cv_on["preprocess"] + cv_off["preprocess"])
     sort["launches"] = train_sort + cv_on["sort"]
-    conv["launches"] = serve_conv + cv_on["conv"]
+    conv["launches"] = serve_conv + cv_on["conv"] + ab_launches
+    for key, count in probe_launches.items():
+        probes[key]["launches"] = count
     log("launches", preprocess_serve=serve_preprocess,
         preprocess_train=train_preprocess,
         preprocess_cv=cv_on["preprocess"] + cv_off["preprocess"],
         sort_train=train_sort, sort_cv=cv_on["sort"], conv_serve=serve_conv,
-        conv_cv=cv_on["conv"])
-    print(json.dumps({"kernels": [preprocess, sort, conv]}), flush=True)
+        conv_cv=cv_on["conv"], conv_ab=ab_launches, **probe_launches)
+    print(json.dumps({"kernels": [
+        preprocess, sort, conv, probes["conv128"], probes["conv64p"],
+        probes["matmul"], probes["conv64p_v2"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,9 @@
 Each source ``salt_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``salt_tpu_torch/build/`` (git-ignored), then loaded with ``ctypes``. A
-library's file name carries a hash of its source and flags, so an edited
-source rebuilds and an unchanged one is reused. Builds run at first use,
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused. Builds run at first use,
 from the sources in the checkout only; :func:`build` starts one ``nvcc``
 per source, all at once, and waits for them together.
 
@@ -28,7 +29,9 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 #: kernel name -> source file under csrc/
 SOURCES = {"preprocess": "preprocess.cu", "bitonic_sort": "bitonic_sort.cu",
-           "conv3x3_pair": "conv3x3_pair.cu"}
+           "conv3x3_pair": "conv3x3_pair.cu", "conv64p": "conv64p.cu",
+           "conv128_im2col": "conv128_im2col.cu",
+           "matmul_bf16": "matmul_bf16.cu"}
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,8 +53,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in (SOURCES[name], *headers):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -95,3 +101,14 @@ def load(name: str) -> ctypes.CDLL:
         path = build([name])[name]
         lib = _LIBS[name] = ctypes.CDLL(path)
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of kernel library ``name``, with its
+    argument types set (pointers and the stream as ``c_void_p``) and an
+    ``int`` result, the launch's cudaError_t."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn

@@ -28,15 +28,7 @@ from salt_tpu_torch.ops.conv_pair import FEATURES, conv3x3_pair
 launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("conv3x3_pair")
-    fn = lib.salt_conv3x3_pair
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def conv3x3_pair_kernel(x: torch.Tensor, w: torch.Tensor,
@@ -79,12 +71,11 @@ def conv3x3_pair_kernel(x: torch.Tensor, w: torch.Tensor,
     if b == 0:
         return out
     w_packed = w.permute(0, 2, 3, 1).contiguous()         # [64, 3, 3, C]
-    lib = _library()
+    fn = build.function("conv3x3_pair", "salt_conv3x3_pair", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.salt_conv3x3_pair(x.data_ptr(), w_packed.data_ptr(),
-                                   out.data_ptr(), b, h, wd, c, hx, wx,
-                                   stream)
+        rc = fn(x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), b, h, wd,
+                c, hx, wx, stream)
     if rc != 0:
         raise RuntimeError(f"conv kernel launch failed: cudaError {rc}")
     launches += 1

@@ -13,7 +13,8 @@ OIHW weights.
   sends every eligible call to ``ops.conv_kernel.conv3x3_pair_kernel``
   (the CUDA kernel on the card, this plain version on the CPU) and
   returns exactly what ``F.conv2d`` returns for every other call.
-  Geometry and dtype decide the route; nothing falls back on failure.
+  Geometry and dtype decide the route, and an A/B scope may narrow it to
+  one resolution band; nothing falls back on failure.
 
 Eligible (the JAX dispatch's rules): weight [64, 64, 3, 3], no bias,
 stride 1, dilation 1, groups 1, padding (1, 1) ("SAME") or (0, 0)
@@ -25,6 +26,7 @@ input and weight to it, as the JAX dispatch casts the weight).
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional, Sequence, Union
 
 import torch
@@ -34,6 +36,9 @@ import torch.nn.functional as F
 FEATURES = 64
 #: below 32x32 the convs are too small to be worth a kernel
 MIN_RES = 32
+#: the A/B scopes of :func:`make_conv_fn`, and the variable it reads
+SCOPES = ("all", "res64", "res128")
+SCOPE_ENV = "SALT_TPU_PALLAS_CONV_SCOPE"
 
 _Pair = Union[int, Sequence[int]]
 
@@ -82,10 +87,25 @@ def route(x: torch.Tensor, weight: torch.Tensor,
     return halo
 
 
-def make_conv_fn() -> Callable[..., torch.Tensor]:
+def in_scope(scope: str, out_h: int) -> bool:
+    """The A/B scope's output-height rule (``salt_tpu/ops/pallas_conv.py``
+    :237-247): "res64" keeps the convs of output height <= 64, "res128"
+    those >= 128, "all" every one."""
+    return not ((scope == "res64" and out_h > 64)
+                or (scope == "res128" and out_h < 128))
+
+
+def make_conv_fn(scope: Optional[str] = None) -> Callable[..., torch.Tensor]:
     """The ``F.conv2d``-compatible callable of ``model.pallas_conv`` "on"
-    and "auto"."""
+    and "auto". ``scope`` ("all", "res64" or "res128"; :data:`SCOPES`)
+    restricts the kernel to one resolution band, as the JAX package's
+    ``SALT_TPU_PALLAS_CONV_SCOPE`` does for its A/B harness; None reads
+    that variable once, here (unset: "all")."""
     from salt_tpu_torch.ops import conv_kernel
+    if scope is None:
+        scope = os.environ.get(SCOPE_ENV, "all")
+    if scope not in SCOPES:
+        raise ValueError(f"conv scope {scope!r}: expected one of {SCOPES}")
 
     def conv_fn(x, weight, bias=None, stride=1, padding=0, dilation=1,
                 groups=1):
@@ -93,6 +113,9 @@ def make_conv_fn() -> Callable[..., torch.Tensor]:
                  if torch.is_autocast_enabled(x.device.type) else x.dtype)
         halo = route(x, weight, bias, stride, padding, dilation, groups,
                      dtype)
+        if halo is not None and not in_scope(scope,
+                                             x.shape[2] - 2 * halo):
+            halo = None
         if halo is None:
             return F.conv2d(x, weight, bias, stride, padding, dilation,
                             groups)

@@ -31,14 +31,8 @@ launches = 0
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("preprocess")
-    fn = lib.salt_preprocess_inference
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
 
 
 def preprocess_inference_kernel(images_u8: torch.Tensor,
@@ -67,12 +61,11 @@ def preprocess_inference_kernel(images_u8: torch.Tensor,
                       device=images_u8.device)
     if b == 0:
         return out
-    lib = _library()
+    fn = build.function("preprocess", "salt_preprocess_inference", _ARGTYPES)
     with torch.cuda.device(images_u8.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.salt_preprocess_inference(
-            images_u8.data_ptr(), out.data_ptr(), b,
-            int(out_dtype == torch.bfloat16), stream)
+        rc = fn(images_u8.data_ptr(), out.data_ptr(), b,
+                int(out_dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"preprocess kernel launch failed: cudaError {rc}")
     launches += 1

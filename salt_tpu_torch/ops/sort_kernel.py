@@ -46,15 +46,7 @@ def kernel_length_ok(p: int) -> bool:
     return 128 <= p <= MAX_LENGTH and p & (p - 1) == 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("bitonic_sort")
-    fn = lib.salt_bitonic_sort_desc
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def sort_desc(keys: torch.Tensor, payload: torch.Tensor
@@ -88,12 +80,11 @@ def sort_desc(keys: torch.Tensor, payload: torch.Tensor
     payload_out = torch.empty_like(payload)
     if b == 0:
         return keys_out, payload_out
-    lib = _library()
+    fn = build.function("bitonic_sort", "salt_bitonic_sort_desc", _ARGTYPES)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.salt_bitonic_sort_desc(keys.data_ptr(), payload.data_ptr(),
-                                        keys_out.data_ptr(),
-                                        payload_out.data_ptr(), b, p, stream)
+        rc = fn(keys.data_ptr(), payload.data_ptr(), keys_out.data_ptr(),
+                payload_out.data_ptr(), b, p, stream)
     if rc != 0:
         raise RuntimeError(f"sort kernel launch failed: cudaError {rc}")
     launches += 1

@@ -1,7 +1,8 @@
 """Tests that need the card: the preprocess, bitonic sort and 3x3 conv
-CUDA kernels against their plain versions, their launch counts and input
-checks, a small serve step on the card against the CPU, a predict step
-through the conv kernel, and one bf16 train step.
+CUDA kernels and the conv and matmul probe kernels against their plain
+versions, their launch counts and input checks, a small serve step on the
+card against the CPU, a predict step through the conv kernel, and one
+bf16 train step.
 Marked ``cuda``; they skip where CUDA is absent and run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -230,3 +231,135 @@ def test_bf16_train_step_keeps_fp32_params_that_move(cuda):
         moved += int(((p.detach() - b).abs() > 1e-5).sum())
         total += p.numel()
     assert moved > 0.9 * total, (moved, total)
+
+
+def _ulp_rule(got, want, terms, k):
+    """The largest |got - want| over one bf16 ulp of ``want`` plus
+    2 K 2^-24 ``terms`` (sum |x||w| of each output); <= 1 passes."""
+    want = want.float()
+    _, exp = torch.frexp(want)
+    ulp = torch.where(want == 0, torch.zeros_like(want),
+                      torch.ldexp(torch.ones_like(want), exp - 8))
+    tol = ulp + 2 * k * 2.0 ** -24 * terms.float()
+    return float(((got.float() - want).abs() / tol.clamp_min(1e-30)).max())
+
+
+def _packed(b, h, w, seed, dtype=torch.bfloat16):
+    """x_packed [b, h+2, (w+16)/2, 128] and a w_packed [768, 128] random in
+    every slot (the structural ones included)."""
+    rng = np.random.RandomState(seed)
+    shape = (b, h + 2, (w + 16) // 2, 128)
+    if dtype == torch.int8:
+        return (torch.from_numpy(rng.randint(-127, 128, shape)
+                                 .astype(np.int8)),
+                torch.from_numpy(rng.randint(-128, 128, (768, 128))
+                                 .astype(np.int8)))
+    return (torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dtype),
+            torch.from_numpy((rng.randn(768, 128) * 0.05).astype(np.float32)
+                             ).to(dtype))
+
+
+@pytest.mark.parametrize("b,h,w,tile_h,db", [
+    (2, 32, 32, 16, False), (1, 64, 128, 32, True), (3, 8, 20, 4, True),
+    (2, 128, 128, 64, False)])
+def test_conv64p_kernels_match_plain_version(cuda, b, h, w, tile_h, db):
+    """Rows 5 and 7 in bf16 within one bf16 ulp plus 2 K 2^-24 sum|x||w|
+    (K = 768) of the plain version; (3, 8, 20, 4) has 40-pair grid tiles,
+    so the kernel's 128-row tiles are ragged there."""
+    from salt_tpu_torch.ops import conv64p_kernel as k
+    from salt_tpu_torch.ops.probe_conv import conv64p_plain
+    x, wp = (t.to(cuda) for t in _packed(b, h, w, seed=h + w))
+    before = (k.launches, k.launches_v2)
+    with torch.no_grad():
+        got5 = k.make_conv64p_kernel(tile_h, h, w)(x, wp)
+        got7 = k.make_conv64p_v2(tile_h, h, w, db=db)(x, wp)
+        torch.cuda.synchronize()
+        want = conv64p_plain(x, wp, h, w)
+        terms = conv64p_plain(x.float().abs(), wp.float().abs(), h, w)
+    assert (k.launches, k.launches_v2) == (before[0] + 1, before[1] + 1)
+    for got in (got5, got7):
+        assert got.shape == (b, h, w // 2, 128) and got.dtype == torch.bfloat16
+        assert _ulp_rule(got, want, terms, 768) <= 1.0
+
+
+@pytest.mark.parametrize("db", [False, True], ids=["db_off", "db_on"])
+def test_conv64p_int8_kernel_is_bit_exact(cuda, db):
+    from salt_tpu_torch.ops import conv64p_kernel as k
+    from salt_tpu_torch.ops.probe_conv import conv64p_plain
+    x, wp = (t.to(cuda) for t in _packed(2, 64, 64, seed=3, dtype=torch.int8))
+    with torch.no_grad():
+        got = k.make_conv64p_v2(32, 64, 64, db=db, int8=True)(x, wp)
+        torch.cuda.synchronize()
+    want = conv64p_plain(x, wp, 64, 64)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,c,f,tile_h", [
+    (2, 32, 32, 128, 128, 16), (1, 16, 24, 256, 64, 8),
+    (1, 8, 40, 128, 192, 8)])
+def test_conv128_kernel_matches_plain_version(cuda, b, h, w, c, f, tile_h):
+    """Row 4 in bf16, K = 9C; the input columns past W+1 hold NaN."""
+    from salt_tpu_torch.ops import conv128_kernel as k
+    from salt_tpu_torch.ops.probe_conv import conv128_plain
+    rng = np.random.RandomState(c + f)
+    x = np.full((b, h + 2, w + 8, c), np.nan, np.float32)
+    x[:, :, :w + 2] = rng.randn(b, h + 2, w + 2, c)
+    x = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    wf = torch.from_numpy((rng.randn(9 * c, f) / np.sqrt(9 * c))
+                          .astype(np.float32)).to(cuda, torch.bfloat16)
+    before = k.launches
+    with torch.no_grad():
+        got = k.make_conv128_kernel(tile_h, h, w, c, f)(x, wf)
+        torch.cuda.synchronize()
+        want = conv128_plain(x, wf, h, w)
+        terms = conv128_plain(x.float().abs(), wf.float().abs(), h, w)
+    assert k.launches == before + 1
+    assert got.shape == (b, h, w, f) and bool(torch.isfinite(got).all())
+    assert _ulp_rule(got, want, terms, 9 * c) <= 1.0
+
+
+@pytest.mark.parametrize("m,kk,n,tile_m", [
+    (4096, 768, 128, 2048), (2048, 576, 64, 2048), (384, 64, 192, 192)])
+def test_matmul_kernel_matches_plain_version(cuda, m, kk, n, tile_m):
+    from salt_tpu_torch.ops import matmul_kernel as k
+    from salt_tpu_torch.ops.probe_conv import matmul_plain
+    rng = np.random.RandomState(m + kk)
+    a = torch.from_numpy(rng.randn(m, kk).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    b = torch.from_numpy((rng.randn(kk, n) / np.sqrt(kk)).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+    before = k.launches
+    got = k.make_matmul_kernel(m, kk, n, tile_m)(a, b)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    want = matmul_plain(a, b)
+    terms = matmul_plain(a.float().abs(), b.float().abs())
+    assert got.shape == (m, n) and _ulp_rule(got, want, terms, kk) <= 1.0
+
+
+def test_probe_kernels_refuse_bad_inputs(cuda):
+    from salt_tpu_torch.ops import conv64p_kernel, conv128_kernel
+    from salt_tpu_torch.ops import matmul_kernel
+    x, wp = (t.to(cuda) for t in _packed(1, 32, 32, seed=0))
+    before = (conv64p_kernel.launches, conv64p_kernel.launches_v2,
+              conv128_kernel.launches, matmul_kernel.launches)
+    conv = conv64p_kernel.make_conv64p_kernel(16, 32, 32)
+    with pytest.raises(TypeError):
+        conv(x.float(), wp.float())            # fp32 only on the CPU
+    with pytest.raises(ValueError, match="contiguous"):
+        conv(x, wp.t().contiguous().t())
+    with pytest.raises(TypeError):
+        conv64p_kernel.make_conv64p_v2(16, 32, 32, int8=True)(x, wp)
+    mm = matmul_kernel.make_matmul_kernel(256, 96, 64, tile_m=128)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        mm(torch.zeros(256, 96, dtype=torch.bfloat16, device=cuda),
+           torch.zeros(96, 64, dtype=torch.bfloat16, device=cuda))
+    shape = (1, 34, 40, 128)
+    buf = torch.zeros(34 * 40 * 128 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        conv128_kernel.make_conv128_kernel(16, 32, 32, 128, 64)(
+            buf[1:].view(shape),
+            torch.zeros(1152, 64, dtype=torch.bfloat16, device=cuda))
+    assert (conv64p_kernel.launches, conv64p_kernel.launches_v2,
+            conv128_kernel.launches, matmul_kernel.launches) == before

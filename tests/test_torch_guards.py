@@ -24,7 +24,10 @@ names = [m.name for m in pkgutil.walk_packages(salt_tpu_torch.__path__,
 for needed in ("pipeline.serving", "ops.preprocess_kernel", "ops.sort_kernel",
                "ops.bitonic", "ops.augment", "losses.lovasz", "train.loop",
                "train.callbacks", "train.state", "pipeline.api",
-               "data.bundle", "metrics.iout"):
+               "data.bundle", "metrics.iout", "ops.probe_conv",
+               "ops.conv64p_kernel", "ops.conv128_kernel",
+               "ops.matmul_kernel", "tools.conv_probe", "tools.conv_probe2",
+               "tools.ab_conv"):
     assert "salt_tpu_torch." + needed in names, names
 for name in names:
     importlib.import_module(name)

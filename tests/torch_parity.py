@@ -111,3 +111,30 @@ def seeded_images(n, seed=0):
     up = np.kron(field, np.ones((8, 8)))[:, :101, :101]
     noise = 0.15 * rng.rand(n, 101, 101)
     return np.clip((up + noise) / 1.15 * 255, 0, 255).astype(np.uint8)
+
+
+def load_tool(name):
+    """A module of the repository's ``tools/`` directory, loaded by path
+    (it is not a package)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"tools_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bf16_ulp_rule(got, want, terms, k):
+    """The largest |got - want| over its tolerance, one bf16 ulp of
+    ``want`` plus 2 K 2^-24 ``terms`` (terms = sum |x||w| of each output):
+    two fp32 sums of the same K exact products in different orders differ
+    by at most the second term, and their bf16 roundings by one ulp more.
+    <= 1 passes. Arguments are numpy arrays."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    _, exp = np.frexp(want)
+    ulp = np.where(want == 0, 0.0, np.ldexp(1.0, exp - 8))
+    tol = ulp + 2 * k * 2.0 ** -24 * np.asarray(terms, np.float64)
+    return float((np.abs(got - want) / np.maximum(tol, 1e-30)).max())
