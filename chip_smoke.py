@@ -320,12 +320,14 @@ def phase_profile(dev, card, pallas_conv="off", steps=5, top=12):
     on SERVE_BATCH images with ``model.pallas_conv``, ``steps`` steps
     under ``torch.profiler``. Host wall time per step (synchronized),
     device kernel time per step, the device's busy share of the wall
-    time, the conv kernel's and the library convs' device time, and the
-    kernels that take the most device time."""
+    time, the conv kernel's device time and launches with its weight
+    repack's (together the route's cost), the library convs' device time,
+    and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.ops import conv_kernel as ck
     from salt_tpu_torch.train.steps import SegmentationRunner
     cfg = default_config()
     cfg.model.pallas_conv = pallas_conv
@@ -352,6 +354,11 @@ def phase_profile(dev, card, pallas_conv="off", steps=5, top=12):
     device_ms_step = sum(_self_device_us(e) for e in events) / steps / 1e3
     kernel = [e for e in events if "conv3x3_pair_kernel" in e.key]
     kernel_ms = sum(_self_device_us(e) for e in kernel) / steps / 1e3
+    # the weight repack before each launch: the device time of the kernels
+    # launched inside its host-side profiler range
+    repack = [e for e in prof.events() if e.name == ck.REPACK_RANGE
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    repack_ms = sum(e.device_time_total for e in repack) / steps / 1e3
     library_ms = sum(_self_device_us(e) for e in events
                      if _is_library_conv(e.key)) / steps / 1e3
     log("profile", step="predict_tta_step", pallas_conv=pallas_conv,
@@ -363,6 +370,8 @@ def phase_profile(dev, card, pallas_conv="off", steps=5, top=12):
         conv_kernel_ms=f"{kernel_ms:.3f}",
         conv_kernel_calls=sum(e.count for e in kernel) // steps,
         conv_kernel_share=f"{kernel_ms / device_ms_step:.3f}",
+        repack_ms=f"{repack_ms:.4f}", repack_calls=len(repack) // steps,
+        route_ms=f"{kernel_ms + repack_ms:.3f}",
         library_conv_ms=f"{library_ms:.3f}",
         library_conv_share=f"{library_ms / device_ms_step:.3f}",
         card=repr(card))
@@ -668,7 +677,10 @@ CONV_SHAPES = (("enc_dec_64", (48, 64, 64, 64), False),
                ("dec_64_halo", (48, 64, 66, 66), True),
                ("head_128_halo", (48, 64, 130, 130), True),
                ("small", (1, 64, 32, 32), False),
-               ("c320", (2, 320, 128, 128), False))
+               ("c320", (2, 320, 128, 128), False),
+               # H = 38 not a multiple of the kernel's 4-row tile, W = 34,
+               # and 15 * 10 = 150 tiles, which no 132-SM grid divides
+               ("ragged", (15, 64, 38, 34), False))
 
 
 def _conv_inputs(shape, seed):

@@ -13,223 +13,371 @@
 // 2 * 48*128*128 * 64 * 576 = 57.98 GFLOP, 0.0586 ms at 989 TFLOP/s bf16;
 // input and output 2 * 100.7 MB (the weight is 74 KB), 0.0601 ms at
 // 3.35 TB/s. The two are within 3% of each other: the card can only reach
-// that bound if the input is read from device memory once and the
-// tensor cores are kept busy while it streams.
+// that bound if the input streams from device memory while the tensor
+// cores stay busy, so loads, products and stores all run asynchronously.
 //
-// The design. The Pallas kernel packs two output pixels across the 128
-// lanes of the TPU's matrix unit (a 64-wide output half-fills it); that
-// trick has no meaning here and is not carried over. What it keeps out of
-// device memory is kept out here too: the padded input and any im2col
-// matrix are never materialized. It is an implicit GEMM, M = B*H*W output
-// pixels, N = 64, K = 9*C:
-// - a block of 4 warps owns a tile of 2 output rows x 64 pixels (M = 128)
-//   and all 64 outputs; blocks are persistent (two per SM) and walk the
-//   tiles in a grid-stride loop;
-// - per channel chunk of KC (64, 32 or 16) it stages the 4 x 66 pixel
-//   input slab (rows and the halo ring) in shared memory, writing zeros
-//   where the padding is, and the chunk's weights (64 x 9 x KC); at C = 64
-//   there is one chunk, so the 73.7 KB of weights are staged once per
-//   block, not once per tile;
-// - each warp computes 32 pixels x 64 outputs with
-//   mma.sync.m16n8k16 (bf16 x bf16 -> fp32) from fragments read out of
-//   shared memory, with rows padded by 8 bf16 so that a fragment's 32
-//   lanes hit 32 distinct banks;
-// - the fp32 sums are rounded to bf16 (round to nearest even) and stored.
-// The slab is 38 KB and the weights 74.8 KB at KC = 64, so two blocks
-// share an SM and one's staging overlaps the other's products. There is
-// no asynchronous copy pipeline, no wgmma and no TMA yet: this first cut
-// is simple and right, and its time is in PERF.md.
+// The design: an implicit GEMM, M = B*H*W output pixels, N = 64, K = 9*C,
+// with neither the padded input nor an im2col matrix in device memory.
+// - Persistent blocks, one per SM, walk tiles of R = 4 output rows x 64
+//   pixels in a grid-stride loop. A block is two consumer warpgroups, each
+//   owning 2 output rows (two wgmma m64n64k16 accumulators, 64 fp32
+//   registers a thread), and one producer warp that issues every load.
+// - Channels go in chunks of 64 (128 bytes a pixel). The tensor maps' out
+//   of bounds boxes fill zeros: the SAME padding, the image's ragged edges
+//   and, for C < 64, the missing channels cost no branch, so one code path
+//   serves every C % 16 == 0; for C > 64 the chunks stream.
+// - The input slab of a (tile, chunk) step is (R+2) x 66 pixels x 64
+//   channels (50.7 KB), one TMA box of a 4-D map over NHWC, in the 128-byte
+//   swizzle. Two slabs form a ring under full / empty mbarriers: the
+//   producer refills a slab as soon as both warpgroups have released it,
+//   so step s+1's slab loads while step s computes, as the Pallas kernel's
+//   two DMA slots do. Each tile reads (R+2)/R = 1.5 input rows per output
+//   row and 66/64 pixels per pixel.
+// - The chunk's weights sit in shared memory as nine [64 f][64 c] TMA boxes
+//   in the 128-byte swizzle that the wgmma B descriptor reads (K-major, SBO
+//   1024 B, a k-step is +32 bytes of start address inside the swizzle
+//   atom). At C <= 64 they load once per block (73.7 KB), not per tile.
+// - A comes from the slab into registers by ldmatrix.x4: the tap's (ky, kx)
+//   shift only moves the row address, so no descriptor starts inside a
+//   swizzle atom. One load of slab row sr at shift kx serves both output
+//   rows of the warpgroup (ky = sr and sr - 1): 12 A loads for 18 taps. The
+//   products of one load are one wgmma group; the next load's fragments
+//   are read while it runs (two register sets, wait_group 1).
+// - Epilogue: fp32 -> bf16 (round to nearest even) into a swizzled staging
+//   tile per output row, then one TMA store per row (out of bounds pixels
+//   and rows are dropped), which drains while the next tile computes.
+// Shared memory: 73,728 (weights) + 2 x 51,200 (slabs, 1024-aligned) +
+// 32,768 (staging) + 48 (barriers) + 1,024 (alignment) = 209,968 bytes.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kF = 64;               // output channels
-constexpr int kRows = 2;             // output rows per tile
-constexpr int kTileW = 64;           // output pixels per row of a tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kSlabRows = kRows + 2;
+constexpr int kF = 64;                       // output channels
+constexpr int kR = 4;                        // output rows per tile
+constexpr int kRW = 2;                       // output rows per warpgroup
+constexpr int kTileW = 64;                   // output pixels per tile row
+constexpr int kKC = 64;                      // channels per chunk
+constexpr int kConsumers = 128 * (kR / kRW); // two warpgroups
+constexpr int kThreads = kConsumers + 32;    // and the producer warp
+constexpr int kSlabRows = kR + 2;
 constexpr int kSlabW = kTileW + 2;
-constexpr int kPadBf16 = 8;          // row padding: conflict-free fragments
+constexpr int kPix = kKC * 2;                // 128 bytes a slab pixel
+constexpr int kTapBytes = kF * kPix;         // one tap's [64][64] B tile
+constexpr int kWBytes = 9 * kTapBytes;       // 73,728
+constexpr int kSlabBytes = kSlabRows * kSlabW * kPix;   // 50,688
+constexpr int kSlabStride = (kSlabBytes + 1023) / 1024 * 1024;
+constexpr int kStageBytes = kTileW * kF * 2;            // 8,192 per row
+constexpr int kBarOffset = kWBytes + 2 * kSlabStride + kR * kStageBytes;
+constexpr int kSmemBytes = kBarOffset + 6 * 8 + 1024;
 
-template <int KC>
-struct Geometry {
-  static constexpr int kPixStride = KC + kPadBf16;           // slab pixel
-  static constexpr int kWStride = 9 * KC + kPadBf16;         // weight row
-  static constexpr int kSlabElems = kSlabRows * kSlabW * kPixStride;
-  static constexpr int kWElems = kF * kWStride;
-  static constexpr int kSmemBytes = (kSlabElems + kWElems) * 2;
-};
-
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---- mbarriers ----
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
 }
-
-template <int KC>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_pair_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w,
-                    __nv_bfloat16* __restrict__ y, int batch, int out_h,
-                    int out_w, int channels, int in_h, int in_w, int pad) {
-  using G = Geometry<KC>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* slab = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = slab + G::kSlabElems;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;             // fragment row group
-  const int q = lane & 3;              // fragment column pair
-  const int wr = warp >> 1;            // the warp's output row in the tile
-  const int wp = (warp & 1) * 32;      // the warp's first pixel in the row
-
-  const int tiles_w = (out_w + kTileW - 1) / kTileW;
-  const int tiles_h = (out_h + kRows - 1) / kRows;
-  const int n_tiles = batch * tiles_h * tiles_w;
-  const int n_chunks = channels / KC;
-  constexpr int kVecPerPix = KC / 8;   // 16-byte vectors per pixel chunk
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int tw = tile % tiles_w;
-    const int th = (tile / tiles_w) % tiles_h;
-    const int b = tile / (tiles_w * tiles_h);
-    const int h0 = th * kRows;
-    const int w0 = tw * kTileW;
-
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-    for (int chunk = 0; chunk < n_chunks; ++chunk) {
-      const int c0 = chunk * KC;
-      __syncthreads();   // the previous products are done with the slab
-      // input slab: rows h0-pad .. h0-pad+3, pixels w0-pad .. w0-pad+65
-      for (int v = threadIdx.x; v < kSlabRows * kSlabW * kVecPerPix;
-           v += kThreads) {
-        const int pix = v / kVecPerPix;
-        const int cv = v % kVecPerPix;
-        const int gh = h0 + pix / kSlabW - pad;
-        const int gw = w0 + pix % kSlabW - pad;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (gh >= 0 && gh < in_h && gw >= 0 && gw < in_w) {
-          const size_t off =
-              ((static_cast<size_t>(b) * in_h + gh) * in_w + gw) * channels +
-              c0 + cv * 8;
-          val = *reinterpret_cast<const uint4*>(x + off);
-        }
-        *reinterpret_cast<uint4*>(slab + pix * G::kPixStride + cv * 8) = val;
-      }
-      // the chunk's weights, staged once per block when there is one chunk
-      if (n_chunks > 1 || tile == static_cast<int>(blockIdx.x)) {
-        for (int v = threadIdx.x; v < kF * 9 * kVecPerPix; v += kThreads) {
-          const int n = v / (9 * kVecPerPix);
-          const int rem = v % (9 * kVecPerPix);
-          const int tap = rem / kVecPerPix;
-          const int cv = rem % kVecPerPix;
-          const uint4 val = *reinterpret_cast<const uint4*>(
-              w + (static_cast<size_t>(n) * 9 + tap) * channels + c0 + cv * 8);
-          *reinterpret_cast<uint4*>(ws + n * G::kWStride + tap * KC + cv * 8) =
-              val;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3;
-        const int kx = tap % 3;
-        const __nv_bfloat16* arow =
-            slab + ((wr + ky) * kSlabW + wp + kx) * G::kPixStride;
-        const __nv_bfloat16* brow = ws + tap * KC;
-#pragma unroll
-        for (int cc = 0; cc < KC; cc += 16) {
-          uint32_t bf[8][2];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const __nv_bfloat16* p = brow + (j * 8 + g) * G::kWStride + cc + q * 2;
-            bf[j][0] = lds32(p);
-            bf[j][1] = lds32(p + 8);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const __nv_bfloat16* p =
-                arow + (i * 16 + g) * G::kPixStride + cc + q * 2;
-            uint32_t af[4];
-            af[0] = lds32(p);
-            af[1] = lds32(p + 8 * G::kPixStride);
-            af[2] = lds32(p + 8);
-            af[3] = lds32(p + 8 * G::kPixStride + 8);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) mma_bf16_16816(acc[i][j], af, bf[j]);
-          }
-        }
-      }
-    }
-
-    // epilogue: fp32 -> bf16 (round to nearest even), NHWC stores
-    const int oh = h0 + wr;
-    if (oh < out_h) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int ow = w0 + wp + i * 16 + g + half * 8;
-          if (ow < out_w) {
-            __nv_bfloat16* dst =
-                y + ((static_cast<size_t>(b) * out_h + oh) * out_w + ow) * kF +
-                q * 2;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-                  __floats2bfloat162_rn(acc[i][j][half * 2],
-                                        acc[i][j][half * 2 + 1]);
-            }
-          }
-        }
-      }
-    }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-template <int KC>
-int launch(const void* x, const void* w, void* y, int batch, int out_h,
-           int out_w, int channels, int in_h, int in_w, int pad,
-           cudaStream_t stream) {
-  const int smem = Geometry<KC>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_pair_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = static_cast<long long>(batch) *
-                          ((out_h + kRows - 1) / kRows) *
-                          ((out_w + kTileW - 1) / kTileW);
-  const int grid = static_cast<int>(tiles < 2LL * sms ? tiles : 2LL * sms);
-  conv3x3_pair_kernel<KC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(y), batch, out_h, out_w, channels, in_h, in_w,
-      pad);
-  return static_cast<int>(cudaGetLastError());
+// ---- TMA ----
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* m,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma ----
+// shared-memory descriptor: K-major, 128-byte swizzle, 8-row atoms 1024
+// bytes apart
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_operand(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// d[64 x 64] += a[64 x 16] (registers) * B[16 x 64] (descriptor)
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+struct Geometry {
+  int out_h, pad, tiles_w, tiles_h, n_tiles, n_chunks;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_pair_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_w,
+                    const __grid_constant__ CUtensorMap tm_y, Geometry g) {
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle and the wgmma descriptors need 1024-byte
+  // alignment
+  const uint32_t base =
+      smem_addr(smem_raw) + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ws = base;
+  const uint32_t slabs = ws + kWBytes;
+  const uint32_t stages = slabs + 2 * kSlabStride;
+  const uint32_t bars = base + kBarOffset;
+  const uint32_t full0 = bars, empty0 = bars + 16, wfull = bars + 32,
+                 wempty = bars + 40;         // full / empty: 2 slots, 8 B
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, kConsumers);
+    }
+    mbar_init(wfull, 1);
+    mbar_init(wempty, kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();                           // the last block-wide barrier
+
+  const int n_steps =
+      (g.n_tiles - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) -
+       1) / static_cast<int>(gridDim.x) * g.n_chunks;
+
+  if (tid >= kConsumers) {
+    // producer: one thread issues every load
+    if (tid != kConsumers) return;
+    for (int s = 0; s < n_steps; ++s) {
+      const int slot = s & 1;
+      const int use = s >> 1;
+      const int tile = blockIdx.x + (s / g.n_chunks) * gridDim.x;
+      const int c0 = (s % g.n_chunks) * kKC;
+      const int tw = tile % g.tiles_w;
+      const int th = (tile / g.tiles_w) % g.tiles_h;
+      const int b = tile / (g.tiles_w * g.tiles_h);
+      mbar_wait(empty0 + 8 * slot, (use & 1) ^ 1);  // both warpgroups done
+      mbar_expect_tx(full0 + 8 * slot, kSlabBytes);
+      tma_load_4d(slabs + slot * kSlabStride, &tm_x, c0, tw * kTileW - g.pad,
+                  th * kR - g.pad, b, full0 + 8 * slot);
+      if (g.n_chunks > 1 || s == 0) {
+        if (g.n_chunks > 1) mbar_wait(wempty, (s & 1) ^ 1);
+        mbar_expect_tx(wfull, kWBytes);
+        for (int t = 0; t < 9; ++t)
+          tma_load_3d(ws + t * kTapBytes, &tm_w, c0, t, 0, wfull);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows 2 wg, 2 wg + 1 of a tile
+  const int wg = tid >> 7;
+  const int wtid = tid & 127;
+  const int warp = wtid >> 5;
+  const int lane = tid & 31;
+  // this lane's ldmatrix row: matrix j = lane / 8 holds pixels
+  // (j & 1) * 8 .. + 7 of the warp's 16 and channel piece j >> 1 of a k-step
+  const int a_pix = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int a_piece = lane >> 4;
+
+  float acc[kRW][32];
+  for (int s = 0; s < n_steps; ++s) {
+    const int slot = s & 1;
+    const int chunk = s % g.n_chunks;
+    const int tile = blockIdx.x + (s / g.n_chunks) * gridDim.x;
+    mbar_wait(full0 + 8 * slot, (s >> 1) & 1);
+    mbar_wait(wfull, g.n_chunks > 1 ? (s & 1) : 0);
+
+    if (chunk == 0) {
+#pragma unroll
+      for (int j = 0; j < kRW; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    }
+    const uint32_t slab = slabs + slot * kSlabStride;
+    // slab row sr at shift kx: its fragments serve output row j of the
+    // warpgroup at ky = sr - j
+    uint32_t a[2][4][4];
+    auto load_a = [&](int it, uint32_t (*dst)[4]) {
+      const int p = (wg * kRW + it / 3) * kSlabW + a_pix + it % 3;
+      const uint32_t row = slab + p * kPix;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int piece = kk * 2 + a_piece;
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+            "[%4];\n"
+            : "=r"(dst[kk][0]), "=r"(dst[kk][1]), "=r"(dst[kk][2]),
+              "=r"(dst[kk][3])
+            : "r"(row + ((piece ^ (p & 7)) << 4)));
+      }
+    };
+    constexpr int kLoads = (kRW + 2) * 3;
+    load_a(0, a[0]);
+#pragma unroll
+    for (int it = 0; it < kLoads; ++it) {
+      const int sr = it / 3;
+      const int kx = it % 3;
+#pragma unroll
+      for (int j = 0; j < kRW; ++j) fence_operand(acc[j]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kRW; ++j) {
+        const int ky = sr - j;
+        if (ky >= 0 && ky < 3) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs(acc[j], a[it & 1][kk],
+                     b_desc(ws + (ky * 3 + kx) * kTapBytes + kk * 32));
+        }
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < kRW; ++j) fence_operand(acc[j]);
+      if (it + 1 < kLoads) {
+        wgmma_wait<1>();                     // it - 1 is done with its A
+        load_a(it + 1, a[(it + 1) & 1]);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kRW; ++j) fence_operand(acc[j]);
+    mbar_arrive(empty0 + 8 * slot);          // the slab is free
+    if (g.n_chunks > 1) mbar_arrive(wempty);
+
+    if (chunk == g.n_chunks - 1) {
+      // epilogue: accumulator element (pixel p, output f) -> staging row
+      // p, piece f / 8 at (f / 8) ^ (p & 7) (TMA's 128-byte swizzle); one
+      // thread stores each row once the warpgroup has written it
+      const int tw = tile % g.tiles_w;
+      const int th = (tile / g.tiles_w) % g.tiles_h;
+      const int b = tile / (g.tiles_w * g.tiles_h);
+      const uint32_t stage = stages + wg * kRW * kStageBytes;
+      if (wtid == 0)                         // the last stores have read it
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      const int r = warp * 16 + (lane >> 2);
+      const int q = lane & 3;
+#pragma unroll
+      for (int jr = 0; jr < kRW; ++jr) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int p = r + half * 8;
+            const __nv_bfloat162 v = __floats2bfloat162_rn(
+                acc[jr][j * 4 + half * 2], acc[jr][j * 4 + half * 2 + 1]);
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                             stage + jr * kStageBytes + p * 128 +
+                             ((j ^ (p & 7)) << 4) + q * 4),
+                         "r"(*reinterpret_cast<const uint32_t*>(&v))
+                         : "memory");
+          }
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      if (wtid == 0) {
+#pragma unroll
+        for (int jr = 0; jr < kRW; ++jr)
+          tma_store_4d(&tm_y, stage + jr * kStageBytes, 0, tw * kTileW,
+                       th * kR + wg * kRW + jr, b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+  }
+  if (wtid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A 2- to 4-D tensor map of bf16 with a 128-byte swizzle (the innermost
+// box is 64 elements, 128 bytes); dims and box innermost first, strides in
+// bytes of dims 1.. .
+int encode(CUtensorMap* m, const void* ptr, int rank, const uint64_t* dims,
+           const uint64_t* strides, const uint32_t* box) {
+  static PFN_cuTensorMapEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
+  }
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult rc = fn(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -237,9 +385,9 @@ int launch(const void* x, const void* w, void* y, int batch, int out_h,
 // x: bf16 NHWC [batch, in_h, in_w, channels], in_h = out_h (SAME, zero pad
 // 1) or out_h + 2 (halo, VALID), likewise in_w; w: bf16 [64, 3, 3,
 // channels]; y: bf16 NHWC [batch, out_h, out_w, 64]. channels a multiple of
-// 16; x and w 16-byte aligned and contiguous; y distinct from x. Launches
-// on `stream` and returns cudaGetLastError() (0 on success), or the error
-// of the setup calls; never synchronizes.
+// 16; x, w and y 16-byte aligned and contiguous; y distinct from x.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// the error of the setup calls; never synchronizes.
 extern "C" int salt_conv3x3_pair(const void* x, const void* w, void* y,
                                  int batch, int out_h, int out_w, int channels,
                                  int in_h, int in_w, void* stream) {
@@ -250,11 +398,59 @@ extern "C" int salt_conv3x3_pair(const void* x, const void* w, void* y,
       dh != dw || (dh != 0 && dh != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int pad = dh == 2 ? 0 : 1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (channels % 64 == 0)
-    return launch<64>(x, w, y, batch, out_h, out_w, channels, in_h, in_w, pad, s);
-  if (channels % 32 == 0)
-    return launch<32>(x, w, y, batch, out_h, out_w, channels, in_h, in_w, pad, s);
-  return launch<16>(x, w, y, batch, out_h, out_w, channels, in_h, in_w, pad, s);
+  Geometry g;
+  g.out_h = out_h;
+  g.pad = dh == 2 ? 0 : 1;
+  g.tiles_w = (out_w + kTileW - 1) / kTileW;
+  g.tiles_h = (out_h + kR - 1) / kR;
+  g.n_chunks = (channels + kKC - 1) / kKC;
+  const long long tiles = static_cast<long long>(batch) * g.tiles_h * g.tiles_w;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  g.n_tiles = static_cast<int>(tiles);
+
+  const uint64_t c2 = 2ull * channels;
+  CUtensorMap tm_x, tm_w, tm_y;
+  const uint64_t x_dims[4] = {static_cast<uint64_t>(channels),
+                              static_cast<uint64_t>(in_w),
+                              static_cast<uint64_t>(in_h),
+                              static_cast<uint64_t>(batch)};
+  const uint64_t x_strides[3] = {c2, c2 * in_w, c2 * in_w * in_h};
+  const uint32_t x_box[4] = {kKC, kSlabW, kSlabRows, 1};
+  const uint64_t w_dims[3] = {static_cast<uint64_t>(channels), 9, kF};
+  const uint64_t w_strides[2] = {c2, c2 * 9};
+  const uint32_t w_box[3] = {kKC, 1, kF};
+  const uint64_t y_dims[4] = {kF, static_cast<uint64_t>(out_w),
+                              static_cast<uint64_t>(out_h),
+                              static_cast<uint64_t>(batch)};
+  const uint64_t y_strides[3] = {2ull * kF, 2ull * kF * out_w,
+                                 2ull * kF * out_w * out_h};
+  const uint32_t y_box[4] = {kF, kTileW, 1, 1};
+  int rc = encode(&tm_x, x, 4, x_dims, x_strides, x_box);
+  if (rc == 0) rc = encode(&tm_w, w, 3, w_dims, w_strides, w_box);
+  if (rc == 0) rc = encode(&tm_y, y, 4, y_dims, y_strides, y_box);
+  if (rc != 0) return rc;
+
+  // the shared-memory opt-in and the SM count, once per device
+  constexpr int kMaxDevices = 64;
+  static int sms_of[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms_of[device] == 0) {
+    err = cudaFuncSetAttribute(conv3x3_pair_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sms_of[device] = sms;
+  }
+  const int sms = sms_of[device];
+  const int grid = g.n_tiles < sms ? g.n_tiles : sms;
+  conv3x3_pair_kernel<<<grid, kThreads, kSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(tm_x, tm_w, tm_y,
+                                                             g);
+  return static_cast<int>(cudaGetLastError());
 }

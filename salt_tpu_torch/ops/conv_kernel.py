@@ -12,20 +12,25 @@ Counterpart of ``salt_tpu/ops/pallas_conv.py::conv3x3_pair`` (:66-178):
 - Inference only, as the JAX kernel is: a call with grad enabled on an
   input that requires grad raises (the train form never calls it).
 
-The weight is repacked from OIHW to the kernel's [64, 3, 3, C] with plain
-torch glue on every call (73.7 KB at C = 64).
+The weight is repacked from OIHW to the kernel's [64, 3, 3, C]
+(``ops.conv_pair.pack_weight``) with one torch copy on every call (73.7 KB
+at C = 64), under the profiler range :data:`REPACK_RANGE` so that a trace
+shows the route's whole device cost.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from salt_tpu_torch.ops import build
-from salt_tpu_torch.ops.conv_pair import FEATURES, conv3x3_pair
+from salt_tpu_torch.ops.conv_pair import FEATURES, conv3x3_pair, pack_weight
 
 #: kernel launches since the last reset (set it to 0 to reset)
 launches = 0
+#: the ``torch.profiler`` range around the weight repack of every launch
+REPACK_RANGE = "conv3x3_pair.repack"
 
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -70,7 +75,11 @@ def conv3x3_pair_kernel(x: torch.Tensor, w: torch.Tensor,
                       device=x.device, memory_format=torch.channels_last)
     if b == 0:
         return out
-    w_packed = w.permute(0, 2, 3, 1).contiguous()         # [64, 3, 3, C]
+    # the range costs host time on every call, so only under a profiler
+    with (torch.profiler.record_function(REPACK_RANGE)
+          if torch.autograd.profiler._is_profiler_enabled
+          else contextlib.nullcontext()):
+        w_packed = pack_weight(w)
     fn = build.function("conv3x3_pair", "salt_conv3x3_pair", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

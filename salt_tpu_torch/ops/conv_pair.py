@@ -9,6 +9,9 @@ OIHW weights.
 - :func:`conv3x3_pair` is the plain version: ``F.conv2d`` on fp32 copies
   with TF32 off, cast back to ``x``'s dtype. The CPU tests and the card's
   comparison use it; the card's main path does not.
+- :func:`conv3x3_packed` is the same conv computed from the kernel's
+  packed weight layout and zero-filled 64-channel chunks, tap by tap, as
+  the kernel reads them; the CPU tests hold it against the JAX kernel.
 - :func:`make_conv_fn` returns an ``F.conv2d``-compatible callable that
   sends every eligible call to ``ops.conv_kernel.conv3x3_pair_kernel``
   (the CUDA kernel on the card, this plain version on the CPU) and
@@ -34,6 +37,8 @@ import torch.nn.functional as F
 
 #: output channels of the kernel (the decoder's and head's width)
 FEATURES = 64
+#: channels per slab and weight chunk of the CUDA kernel
+CHUNK = 64
 #: below 32x32 the convs are too small to be worth a kernel
 MIN_RES = 32
 #: the A/B scopes of :func:`make_conv_fn`, and the variable it reads
@@ -60,6 +65,39 @@ def conv3x3_pair(x: torch.Tensor, w: torch.Tensor,
             y = F.conv2d(x.float(), w.float(), padding=0 if halo else 1)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+    return y.to(x.dtype)
+
+
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [64, C, 3, 3] -> the kernel's [64, 3, 3, C], contiguous."""
+    return w.permute(0, 2, 3, 1).contiguous()
+
+
+def conv3x3_packed(x: torch.Tensor, w_packed: torch.Tensor,
+                   halo: bool = False) -> torch.Tensor:
+    """The conv as the CUDA kernel reads it, in plain fp32 PyTorch: ``x``
+    [B, C, H, W] (``halo``: [B, C, H+2, W+2]) and the weight in the
+    kernel's packed layout ``w_packed`` [64, 3, 3, C]
+    (:func:`pack_weight`). Channels are zero-filled to a multiple of
+    :data:`CHUNK` and summed chunk by chunk, tap by tap, as the kernel's
+    slabs and staged weight tiles hold them. Result [B, 64, H, W] in
+    ``x``'s dtype."""
+    c = x.shape[1]
+    if tuple(w_packed.shape) != (FEATURES, 3, 3, c):
+        raise ValueError(f"packed weight [{FEATURES}, 3, 3, {c}], got "
+                         f"{tuple(w_packed.shape)}")
+    cp = -(-c // CHUNK) * CHUNK
+    xp = F.pad(x.float(), (0, 0) * 2 if halo else (1, 1, 1, 1))
+    xp = F.pad(xp, (0, 0, 0, 0, 0, cp - c))
+    wp = F.pad(w_packed.float(), (0, cp - c))
+    h, wd = xp.shape[2] - 2, xp.shape[3] - 2
+    y = xp.new_zeros((x.shape[0], FEATURES, h, wd))
+    for c0 in range(0, cp, CHUNK):
+        for ky in range(3):
+            for kx in range(3):
+                slab = xp[:, c0:c0 + CHUNK, ky:ky + h, kx:kx + wd]
+                y += torch.einsum("bchw,fc->bfhw", slab,
+                                  wp[:, ky, kx, c0:c0 + CHUNK])
     return y.to(x.dtype)
 
 

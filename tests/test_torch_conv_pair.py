@@ -16,7 +16,8 @@ import jax.numpy as jnp
 from salt_tpu.ops.pallas_conv import conv3x3_pair as jax_conv3x3_pair
 from salt_tpu.ops.pallas_conv import make_pallas_conv_fn
 from salt_tpu_torch.ops import conv_kernel
-from salt_tpu_torch.ops.conv_pair import conv3x3_pair, make_conv_fn, route
+from salt_tpu_torch.ops.conv_pair import (conv3x3_pair, conv3x3_packed,
+                                         make_conv_fn, pack_weight, route)
 
 DN = ("NHWC", "HWIO", "NHWC")
 
@@ -48,6 +49,28 @@ def test_plain_matches_jax_kernel_fp32(c, halo):
                                        halo=halo, interpret=True))
     got = _nhwc(conv3x3_pair(*_to_port(x, w), halo=halo))
     assert got.shape == want.shape == (1, 32, 32, 64)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("b,h,w,c,halo", [
+    *[(1, 32, 32, c, halo) for c in (16, 32, 64, 320)
+      for halo in (False, True)],
+    (2, 10, 34, 80, False)],
+    ids=lambda v: str(v))
+def test_packed_layout_matches_jax_kernel_fp32(b, h, w, c, halo):
+    """The conv from the CUDA kernel's packed weight layout and its
+    zero-filled 64-channel chunks (C 16, 32: one partial chunk; 320: five;
+    80 on a ragged 10 x 34 output: a full and a partial one), held against
+    the JAX kernel at its own 2e-4."""
+    x, wt = _arrays(b, h + 2 * halo, w + 2 * halo, c, seed=c + h,
+                    scale=0.05 if c > 64 else 0.1)
+    want = np.asarray(jax_conv3x3_pair(jnp.asarray(x), jnp.asarray(wt),
+                                       halo=halo, interpret=True))
+    xt, wp = _to_port(x, wt)
+    packed = pack_weight(wp)
+    assert packed.shape == (64, 3, 3, c) and packed.is_contiguous()
+    got = _nhwc(conv3x3_packed(xt, packed, halo=halo))
+    assert got.shape == want.shape == (b, h, w, 64)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 

@@ -134,7 +134,10 @@ def _conv_inputs(b, c, hx, wx, seed=0):
 @pytest.mark.parametrize("b,c,hx,wx,halo", [
     (2, 64, 64, 64, False), (2, 64, 66, 66, True), (1, 64, 32, 32, False),
     (1, 32, 40, 48, False), (1, 320, 64, 64, False), (3, 64, 130, 130, True),
-    (1, 16, 33, 70, False)])
+    (1, 16, 33, 70, False),
+    # H not a multiple of the kernel's 4-row tile, W = 34, and a tile
+    # count (9 * 16 = 144) that does not divide a 132-SM grid
+    (1, 64, 38, 34, False), (2, 32, 36, 36, True), (9, 64, 64, 64, False)])
 def test_conv_kernel_matches_plain_version(cuda, b, c, hx, wx, halo):
     """bf16 within one bf16 ulp of the plain version (fp32 conv with TF32
     off, rounded to bf16), plus 2 K 2^-24 sum|x||w| (K = 9 C) where
