@@ -123,14 +123,14 @@ def _self_device_us(event):
     return 0.0
 
 
-def device_ms(fn, match="", iters=50):
+def device_ms(fn, match="", iters=50, launches_per_call=1):
     """Device time per call of ``fn`` from ``torch.profiler``: with
-    ``match``, the mean time of one launch of the kernels whose name
-    contains it (the kernels here launch once per call; dividing by the
-    launches the profiler recorded, not by ``iters``, keeps a run whose
-    trace dropped events right); without, all CUDA kernels' own time
-    over ``iters`` calls. 0.0 when the profiler records no device
-    time."""
+    ``match``, the time of the kernels whose name contains it over the
+    calls they make, their recorded launches over ``launches_per_call``
+    (dividing by the launches the profiler recorded, not by ``iters``,
+    keeps a run whose trace dropped events right); without, all CUDA
+    kernels' own time over ``iters`` calls. 0.0 when the profiler records
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
@@ -142,7 +142,8 @@ def device_ms(fn, match="", iters=50):
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if match in e.key and _self_device_us(e) > 0]
-    calls = sum(e.count for e in rows) if match else iters
+    calls = (sum(e.count for e in rows) / launches_per_call if match
+             else iters)
     return sum(_self_device_us(e) for e in rows) / max(calls, 1) / 1e3
 
 
@@ -559,35 +560,56 @@ def phase_serve(dev, card):
     return launches + on_pre, on_launches
 
 
-def _sort_inputs(b, p, ties, seed):
+def _sort_inputs(b, p, keys_kind, seed):
+    """Keys "distinct", "ties" (rounded to quarters) or "nan_zeros" (ties,
+    with NaNs, +0.0 and -0.0 mixed in); a Lovász-style payload."""
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
     keys = rng.randn(b, p).astype(np.float32)
-    if ties:
+    if keys_kind != "distinct":
         keys = np.round(keys * 4) / 4
+    if keys_kind == "nan_zeros":
+        keys[rng.rand(b, p) < 0.05] = np.nan
+        keys[rng.rand(b, p) < 0.1] = 0.0
+        keys[rng.rand(b, p) < 0.1] = -0.0
     payload = ((rng.randint(0, 2, (b, p)) << 20)
                | np.arange(p)).astype(np.int32)
     return torch.from_numpy(keys), torch.from_numpy(payload)
 
 
+#: (rows, P) the sort kernel is held at: the train batch (every call on
+#: the train and CV paths: validation pads its last batch to 24), a
+#: batch of 8, single rows, the plan's chunk edges, and both sides of the
+#: wrapper's choice of chunk (16 and 17 rows on 132 SMs)
+SORT_SHAPES = ((1, SORT_LENGTH), (5, SORT_LENGTH), (8, SORT_LENGTH),
+               (TRAIN_BATCH, SORT_LENGTH), (3, 1024), (1, 128), (2, 4096),
+               (2, 8192), (16, SORT_LENGTH), (17, SORT_LENGTH))
+#: rows of 32,768 the sort is timed at: the train batch (the larger
+#: chunk) and a batch of 8 (the smaller)
+SORT_TIMED_ROWS = (TRAIN_BATCH, 8)
+
+
 def phase_sort_kernel(dev):
-    """The bitonic sort kernel against the plain network on the card:
-    keys and payload bit-identical, with and without ties, at 1, 5 and 24
-    rows of 32,768 (24 = the train batch) and at (3, 1024). The Lovász
-    hinge through the kernel against the same loss on the CPU, where the
-    plain network sorts: value and gradient at rtol 1e-5 / atol 1e-7 (the
-    sort is the same permutation; the CPU and the card sum the 32,768
-    terms in another order). Times at 24 x 32,768, as a train step calls
-    it: the kernel, the plain network, and ``torch.sort`` (stable,
-    descending) with the payload gathered along, the library yardstick."""
+    """The bitonic sort kernel's plan against the plain network on the
+    card: keys and payload bit-identical at ``SORT_SHAPES``, with keys
+    distinct, with ties and with NaN / +0.0 / -0.0. The Lovász hinge
+    through the kernel against the same loss on the CPU, where the plain
+    network sorts: value and gradient at rtol 1e-5 / atol 1e-7 (the sort
+    is the same permutation; the CPU and the card sum the 32,768 terms in
+    another order). Times at ``SORT_TIMED_ROWS`` x 32,768, as a train
+    step (24) and a batch of 8 call it, one on each side of
+    the wrapper's choice of chunk: every launch of the plan per call
+    (``KERNEL_PREFIX``), the plain network, and ``torch.sort`` (stable,
+    descending) with the payload gathered along, the library yardstick
+    (``tools/sort_probe.py`` gives each launch's time). The kernels
+    entry is the train batch's."""
     import torch
     from salt_tpu_torch.ops import sort_kernel as sk
     from salt_tpu_torch.ops.bitonic import bitonic_sort_desc
-    for b, p in ((1, SORT_LENGTH), (5, SORT_LENGTH), (TRAIN_BATCH, SORT_LENGTH),
-                 (3, 1024)):
-        for ties in (False, True):
-            keys, payload = _sort_inputs(b, p, ties, seed=b)
+    for b, p in SORT_SHAPES:
+        for keys_kind in ("distinct", "ties", "nan_zeros"):
+            keys, payload = _sort_inputs(b, p, keys_kind, seed=b)
             keys, payload = keys.to(dev), payload.to(dev)
             got_k, got_p = sk.sort_desc(keys, payload)
             torch.cuda.synchronize()
@@ -596,10 +618,12 @@ def phase_sort_kernel(dev):
                                 want_k.view(torch.int32))
                     and torch.equal(got_p, want_p))
             if not same:
-                raise AssertionError(f"sort kernel ({b}, {p}) ties={ties}: "
+                raise AssertionError(f"sort kernel ({b}, {p}) {keys_kind}: "
                                      "not bit-identical to the network")
             log("kernel", name="bitonic_sort_desc", rows=b, length=p,
-                ties=ties, bit_identical=same)
+                keys=keys_kind,
+                device_launches_per_call=len(sk.card_plan(b, p, dev)),
+                bit_identical=True)
 
     logits = torch.randn(TRAIN_BATCH, SORT_LENGTH,
                          generator=torch.Generator().manual_seed(0))
@@ -623,11 +647,20 @@ def phase_sort_kernel(dev):
         value_err=float((results[0][0] - results[1][0]).abs()),
         grad_max_abs_err=grad_err)
 
-    keys, payload = _sort_inputs(TRAIN_BATCH, SORT_LENGTH, False, seed=11)
-    keys, payload = keys.to(dev), payload.to(dev)
+    timed = {rows: _time_sort(dev, rows) for rows in SORT_TIMED_ROWS}
+    return timed[TRAIN_BATCH]
 
-    def kernel():
-        return sk.sort_desc(keys, payload)
+
+def _time_sort(dev, rows):
+    """The sort at [rows, 32,768], distinct keys: the wrapper's plan
+    (every launch per call), the plain network and ``torch.sort`` +
+    gather, by the profiler (CUDA events where it records no device
+    time), beside the bound; logged, and returned as a kernels entry."""
+    import torch
+    from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.ops.bitonic import bitonic_sort_desc
+    keys, payload = _sort_inputs(rows, SORT_LENGTH, "distinct", seed=11)
+    keys, payload = keys.to(dev), payload.to(dev)
 
     def plain():
         return bitonic_sort_desc(keys, payload)
@@ -636,7 +669,12 @@ def phase_sort_kernel(dev):
         values, idx = torch.sort(keys, dim=1, descending=True, stable=True)
         return values, payload.gather(1, idx)
 
-    ms = device_ms(kernel, match="bitonic_sort_desc_kernel", iters=20)
+    def kernel():
+        return sk.sort_desc(keys, payload)
+
+    plan = sk.card_plan(rows, SORT_LENGTH, dev)
+    ms = device_ms(kernel, match=sk.KERNEL_PREFIX, iters=20,
+                   launches_per_call=len(plan))
     plain_ms = device_ms(plain, iters=5)
     library_ms = device_ms(library, iters=20)
     events = dict(ms=time_ms(kernel, 50, 5), plain_ms=time_ms(plain, 5, 2),
@@ -646,19 +684,22 @@ def phase_sort_kernel(dev):
         ms, plain_ms, library_ms = (events["ms"], events["plain_ms"],
                                     events["library_ms"])
         timed_by = "events"
-    n = TRAIN_BATCH * SORT_LENGTH
+    n = rows * SORT_LENGTH
     bytes_moved = n * 16            # keys and payload, read once, written once
     n_exp = SORT_LENGTH.bit_length() - 1
     compare_exchanges = n_exp * (n_exp + 1) // 2 * (n // 2)
     bound_s = max(bytes_moved / HBM_BYTES_PER_S, compare_exchanges / FP32_FLOPS)
     bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S
                 >= compare_exchanges / FP32_FLOPS else "operations")
-    log("kernel", name="bitonic_sort_desc", rows=TRAIN_BATCH,
-        length=SORT_LENGTH, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-        library_ms=f"{library_ms:.5f}", bound_ms=f"{bound_s * 1e3:.5f}",
-        bound_by=bound_by, bytes=bytes_moved,
-        compare_exchanges=compare_exchanges, timed_by=timed_by,
-        events_ms=f"{events['ms']:.5f}",
+    log("kernel", name="bitonic_sort_desc", rows=rows, length=SORT_LENGTH,
+        chunk=1 << plan[0].log_chunk, ms=f"{ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+        bound_ms=f"{bound_s * 1e3:.5f}", bound_by=bound_by,
+        share_of_bound=f"{bound_s * 1e3 / ms:.4f}",
+        x_library=f"{ms / library_ms:.3f}",
+        device_launches_per_call=len(plan),
+        bytes=bytes_moved, compare_exchanges=compare_exchanges,
+        timed_by=timed_by, events_ms=f"{events['ms']:.5f}",
         events_plain_ms=f"{events['plain_ms']:.5f}",
         events_library_ms=f"{events['library_ms']:.5f}")
     return {"name": "bitonic_sort_desc", "route": "cuda",
@@ -1229,7 +1270,7 @@ def phase_train(dev, card):
         experiment = Experiment(cfg.paths.experiment_dir)
 
         # the main path
-        sk.launches = 0
+        sk.launches = sk.device_launches = 0
         pk.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1237,6 +1278,7 @@ def phase_train(dev, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         sort_launches, pre_launches = sk.launches, pk.launches
+        sort_device_launches = sk.device_launches
         peak = torch.cuda.max_memory_allocated()
         get_logger().removeHandler(times.handler)
 
@@ -1246,6 +1288,15 @@ def phase_train(dev, card):
                 f"sort kernel launched {sort_launches} times for "
                 f"{train_steps} train steps + {TRAIN_EPOCHS * val_batches} "
                 "validation-loss batches")
+        # validation pads its last batch to the inference batch size
+        want_device = (
+            train_steps * len(sk.card_plan(TRAIN_BATCH, SORT_LENGTH, dev))
+            + TRAIN_EPOCHS * val_batches * len(sk.card_plan(
+                cfg.training.batch_size_inference, SORT_LENGTH, dev)))
+        if sort_device_launches != want_device:
+            raise AssertionError(
+                f"sort kernel: {sort_device_launches} device launches for "
+                f"{sort_launches} calls, not the plans' {want_device}")
         if pre_launches != 2 * TRAIN_EPOCHS * val_batches:
             raise AssertionError(
                 f"preprocess kernel launched {pre_launches} times for "
@@ -1281,6 +1332,7 @@ def phase_train(dev, card):
         epoch2_validation_s=f"{wall1 - steps_per_epoch * mean_batch1:.3f}",
         epoch1_wall_s=f"{times.epochs[0][1]:.3f}",
         peak_mem_bytes=peak, sort_launches=sort_launches,
+        sort_device_launches=sort_device_launches,
         preprocess_launches=pre_launches,
         train_loss=[round(e["train_loss"], 5) for e in epochs],
         val_iout=[round(e["iout"], 5) for e in epochs],
@@ -1292,11 +1344,13 @@ def phase_train_profile(dev, card, steps=5, top=14):
     """Where one bf16 train step's time goes (24 images, the flagship at
     full width): host wall and device ms per step, the busy share,
     GFLOP (conv + matmul, forward and backward) and TFLOP/s, the top
-    kernels, and the sort kernel's share of device time."""
+    kernels, and the sort's share of device time, every launch of its
+    plan counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.ops import sort_kernel as sk
     from salt_tpu_torch.train.steps import SegmentationRunner
     cfg = default_config()
     runner = SegmentationRunner(cfg, dev)
@@ -1326,8 +1380,8 @@ def phase_train_profile(dev, card, steps=5, top=14):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
     device_ms_step = sum(_self_device_us(e) for e in events) / steps / 1e3
-    sort_ms = sum(_self_device_us(e) for e in events
-                  if "bitonic_sort_desc_kernel" in e.key) / steps / 1e3
+    sort_events = [e for e in events if sk.KERNEL_PREFIX in e.key]
+    sort_ms = sum(_self_device_us(e) for e in sort_events) / steps / 1e3
     log("train_profile", step="train_step", images=TRAIN_BATCH,
         dtype=cfg.training.dtype, wall_ms=f"{wall_ms:.3f}",
         device_ms=f"{device_ms_step:.3f}",
@@ -1335,7 +1389,9 @@ def phase_train_profile(dev, card, steps=5, top=14):
         tflops_on_wall=f"{gflop / wall_ms:.1f}",
         tflops_on_device=f"{gflop / device_ms_step:.1f}",
         sort_kernel_ms=f"{sort_ms:.4f}",
-        sort_kernel_share=f"{sort_ms / device_ms_step:.4f}", card=repr(card))
+        sort_kernel_share=f"{sort_ms / device_ms_step:.4f}",
+        sort_device_launches_per_step=sum(e.count for e in sort_events)
+        // steps, card=repr(card))
     events.sort(key=_self_device_us, reverse=True)
     for e in events[:top]:
         log("train_profile", kernel=repr(e.key[:90]),

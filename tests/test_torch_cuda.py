@@ -79,36 +79,74 @@ def test_tta_step_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
 
-def _sort_inputs(b, p, ties, seed=0):
+def _sort_inputs(b, p, keys_kind, seed=0):
+    """Keys "distinct", "ties" (rounded to quarters) or "nan_zeros" (ties,
+    with NaNs, +0.0 and -0.0 mixed in); a Lovász-style payload."""
     rng = np.random.RandomState(seed)
     keys = rng.randn(b, p).astype(np.float32)
-    if ties:
+    if keys_kind != "distinct":
         keys = np.round(keys * 4) / 4
+    if keys_kind == "nan_zeros":
+        keys[rng.rand(b, p) < 0.05] = np.nan
+        keys[rng.rand(b, p) < 0.1] = 0.0
+        keys[rng.rand(b, p) < 0.1] = -0.0
     payload = ((rng.randint(0, 2, (b, p)) << 20)
                | np.arange(p)).astype(np.int32)
     return torch.from_numpy(keys), torch.from_numpy(payload)
 
 
-@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "ties"])
+@pytest.mark.parametrize("ties", ["distinct", "ties", "nan_zeros"])
 @pytest.mark.parametrize("shape", [(1, 32768), (5, 32768), (24, 32768),
-                                   (3, 1024)])
+                                   (3, 1024), (8, 32768), (1, 128), (2, 4096),
+                                   (2, 8192), (16, 32768), (17, 32768)])
 def test_sort_kernel_is_bit_identical_to_the_network(cuda, shape, ties):
+    """Keys and payload bit for bit, at the paths' shape (24 rows of
+    32,768: the train batch, and validation pads to it), at 8 rows, at
+    the plan's chunk edges and on both sides of the wrapper's choice of
+    chunk (16 and 17 rows of 32,768 on 132 SMs); one ``launches`` per
+    call, the plan's length of ``device_launches``."""
     from salt_tpu_torch.ops import sort_kernel as sk
     from salt_tpu_torch.ops.bitonic import bitonic_sort_desc
     keys, payload = _sort_inputs(*shape, ties, seed=shape[0])
     keys, payload = keys.to(cuda), payload.to(cuda)
-    before = sk.launches
+    before, device_before = sk.launches, sk.device_launches
     got_k, got_p = sk.sort_desc(keys, payload)
     torch.cuda.synchronize()
     assert sk.launches == before + 1
+    assert sk.device_launches == (device_before
+                                  + len(sk.card_plan(*shape, keys.device)))
     want_k, want_p = bitonic_sort_desc(keys, payload)
     assert torch.equal(got_k.view(torch.int32), want_k.view(torch.int32))
     assert torch.equal(got_p, want_p)
 
 
+def test_sort_kernel_lovasz_value_and_gradient_match_cpu(cuda):
+    """The per-image Lovász hinge through the kernel at (8, 32768) with
+    ties against the CPU, where the plain network sorts: the same
+    permutation, so only the order of the sums differs (rtol 1e-5,
+    atol 1e-7, as chip_smoke.py holds it at 24 rows)."""
+    from salt_tpu_torch.ops import sort_kernel as sk
+    rng = np.random.RandomState(5)
+    logits = torch.from_numpy(
+        (np.round(rng.randn(8, 32768) * 8) / 8).astype(np.float32))
+    labels = torch.from_numpy((rng.rand(8, 32768) > 0.6).astype(np.float32))
+    results = []
+    for d in (cuda, torch.device("cpu")):
+        x = logits.to(d).requires_grad_(True)
+        before = sk.launches
+        loss = sk.lovasz_hinge_flat_kernel(x, labels.to(d)).mean()
+        loss.backward()
+        assert sk.launches == before + (1 if d.type == "cuda" else 0)
+        results.append((loss.detach().cpu(), x.grad.cpu()))
+    torch.testing.assert_close(results[0][0], results[1][0], rtol=1e-5,
+                               atol=1e-7)
+    torch.testing.assert_close(results[0][1], results[1][1], rtol=1e-5,
+                               atol=1e-7)
+
+
 def test_sort_kernel_refuses_bad_inputs(cuda):
     from salt_tpu_torch.ops.sort_kernel import sort_desc
-    keys, payload = _sort_inputs(2, 1024, False)
+    keys, payload = _sort_inputs(2, 1024, "distinct")
     keys, payload = keys.to(cuda), payload.to(cuda)
     with pytest.raises(TypeError):
         sort_desc(keys.half(), payload)
@@ -121,6 +159,9 @@ def test_sort_kernel_refuses_bad_inputs(cuda):
     big_p = torch.zeros(2, 2048, dtype=torch.int32, device=cuda)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         sort_desc(big_k, big_p)
+    shifted_k = torch.zeros(2 * 1024 + 1, device=cuda)[1:].view(2, 1024)
+    with pytest.raises(ValueError, match="aligned"):
+        sort_desc(shifted_k, payload)
 
 
 def _conv_inputs(b, c, hx, wx, seed=0):
