@@ -18,8 +18,10 @@ Phases (each raises on failure; the script then exits non-zero):
    probe path — the probe harnesses as a user runs them, at their full
                 size (``python -m salt_tpu_torch.tools.conv_probe`` and
                 ``conv_probe2``: B 64, H = W = 128), which launch the
-                im2col conv, pair-packed conv and matmul kernels;
-   probe kernels — those four kernels (rows 4-7 of PERF.md's table)
+                im2col conv and pair-packed conv (rows 4 and 5: the
+                VALID-conv kernel), the matmul and the pair-packed conv
+                variants (rows 6 and 7: the mma.sync kernel);
+   probe kernels — those four rows (rows 4-7 of PERF.md's table)
                 against their plain versions at the same size (bf16 one
                 ulp plus a cancellation floor, int8 bit for bit), timed
                 beside the plain version, a library call and the bound;
@@ -925,7 +927,10 @@ def phase_probe_kernels(dev, card):
     ``F.conv2d`` (cuDNN, bf16, channels_last, VALID on the unpacked
     input) computes the same function: row 5 at tile_h 16, row 7 at
     tile_h 32 with db (and its int8 twin), row 4 at tile_h 16, row 6 at both
-    GEMMs; beside the plain version and the bound."""
+    GEMMs; beside the plain version and the bound. Rows 4 and 5 run one
+    kernel (``csrc/conv_valid.cu``, the profiler's ``conv_valid_kernel``),
+    which picks its own tile: their tile_h lines run the same launches;
+    rows 6 and 7 run ``csrc/igemm.cuh`` (``RowMajorA``, ``PairPackedA``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1040,7 +1045,7 @@ def phase_probe_kernels(dev, card):
     v2 = make_conv64p_v2(32, H, W, db=True)
     v2q = make_conv64p_v2(32, H, W, db=True, int8=True)
     library64 = lambda: F.conv2d(x_nchw, w_oihw)
-    record("conv64p", "th16", lambda: conv5(x, wp3), "PairPackedA",
+    record("conv64p", "th16", lambda: conv5(x, wp3), "conv_valid_kernel",
            lambda: conv64p_plain(x, wp3, H, W), library64, c64_bytes, c64_ops)
     record("conv64p_v2", "th32 +db bf16", lambda: v2(x, wp3), "PairPackedA",
            lambda: conv64p_plain(x, wp3, H, W), library64, c64_bytes, c64_ops)
@@ -1051,7 +1056,7 @@ def phase_probe_kernels(dev, card):
     conv4 = make_conv128_kernel(16, H, W, 128, 128)
     x4v = x4[:, :, :W + 2].contiguous().permute(0, 3, 1, 2)
     w4_oihw = w4.reshape(3, 3, 128, 128).permute(3, 2, 0, 1).contiguous()
-    record("conv128", "th16", lambda: conv4(x4, w4), "Im2colA",
+    record("conv128", "th16", lambda: conv4(x4, w4), "conv_valid_kernel",
            lambda: conv128_plain(x4, w4, H, W),
            lambda: F.conv2d(x4v, w4_oihw),
            x4.numel() * 2 + w4.numel() * 2 + B * H * W * 128 * 2,
@@ -1063,9 +1068,10 @@ def phase_probe_kernels(dev, card):
                lambda: matmul_plain(a, b), lambda: torch.matmul(a, b),
                (m * k + k * n + m * n) * 2, 2 * m * k * n)
     sources = dict(
-        conv128=("salt_tpu_torch/csrc/conv128_im2col.cu",
+        conv128=("salt_tpu_torch/csrc/conv_valid.cu",
                  "tools/pallas_conv.py:35"),
-        conv64p=("salt_tpu_torch/csrc/conv64p.cu", "tools/pallas_conv.py:115"),
+        conv64p=("salt_tpu_torch/csrc/conv_valid.cu",
+                 "tools/pallas_conv.py:115"),
         matmul=("salt_tpu_torch/csrc/matmul_bf16.cu",
                 "tools/pallas_conv.py:173"),
         conv64p_v2=("salt_tpu_torch/csrc/conv64p.cu",

@@ -2,9 +2,10 @@
 // (sm_90a); plain C interface loaded with ctypes by
 // salt_tpu_torch/ops/conv64p_kernel.py.
 //
-// Replaces the TPU probe kernels tools/pallas_conv.py:115-170
-// (make_conv64p_kernel) and tools/pallas_conv2.py:53-168 (make_conv64p_v2,
-// with its double-buffered and int8 variants). x_packed [B][H+2][P][128]
+// Replaces the TPU probe kernel tools/pallas_conv2.py:53-168
+// (make_conv64p_v2, with its double-buffered and int8 variants); row 5,
+// tools/pallas_conv.py:115-170 (make_conv64p_kernel), the same function
+// without them, runs on conv_valid.cu. x_packed [B][H+2][P][128]
 // (P = (W+16)/2; two neighbouring pixels' 64 channels share a row) by
 // w_packed [768][128]: output pair (b, h, p) is one [1, 768] x [768, 128]
 // product over packed columns p, p+1 of input rows h..h+2. All 768 weight

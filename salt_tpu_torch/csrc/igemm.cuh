@@ -1,22 +1,24 @@
 // Implicit GEMM on mma.sync for the H100 (sm_90a), shared by the probe
-// kernels conv64p.cu (pair-packed 3x3 conv, bf16 or int8), conv128_im2col.cu
-// (deep-K im2col 3x3 conv) and matmul_bf16.cu (plain tiled matmul).
+// kernels of rows 6 and 7 of PERF.md's kernel table: matmul_bf16.cu (plain
+// tiled matmul) and conv64p.cu's make_conv64p_v2 path (pair-packed 3x3
+// conv, bf16 or int8, with or without double buffering). Rows 4 and 5 run
+// on conv_valid.cu (TMA + wgmma).
 //
 // out[m, n] = sum_k A[m, k] * Bt[n, k], with A never materialized: an
-// operand class (RowMajorA, PairPackedA, Im2colA below) maps an output row m
-// to the address of its first K byte and a K byte offset to its distance from
-// there. Every K run of A (a row of a matmul, one ky row of a pair window,
-// one tap of an im2col row) is contiguous and a multiple of 128 bytes long,
-// so a stage of 128 K bytes is one contiguous 128-byte piece of each row.
+// operand class (RowMajorA, PairPackedA below) maps an output row m to the
+// address of its first K byte and a K byte offset to its distance from
+// there. Every K run of A (a row of a matmul, one ky row of a pair window)
+// is contiguous and a multiple of 128 bytes long, so a stage of 128 K bytes
+// is one contiguous 128-byte piece of each row.
 // Bt is the weight matrix transposed to [N][K] (K contiguous) by the caller,
 // so that both operands load with plain (untransposed) ldmatrix, for bf16
 // and for int8 alike. fp32 (bf16) or s32 (int8) sums stay in registers and
 // are rounded once to bf16; an s32 sum below 2^24 converts to fp32 exactly.
 //
 // Work split, as the Pallas grid splits it: block x owns one grid tile of
-// `tile_rows` consecutive output rows (a tile_h x W/2 band of pairs, a
-// tile_h x W band of pixels, or tile_m matrix rows) and walks it in 128-row
-// tiles; block y owns BN (128 or 64) output columns. 8 warps, each a 64x32
+// `tile_rows` consecutive output rows (a tile_h x W/2 band of pairs or
+// tile_m matrix rows) and walks it in 128-row tiles; block y owns BN (128
+// or 64) output columns. 8 warps, each a 64x32
 // (BN = 128) or 32x32 (BN = 64) piece of the 128 x BN tile.
 //
 // Shared memory holds one stage of A (128 rows x 128 bytes) and of Bt (BN
@@ -80,24 +82,6 @@ struct PairPackedA {
   __device__ long long koff(int kb) const {
     const int run = 256 * es;
     return static_cast<long long>(kb / run) * p * 128 * es + kb % run;
-  }
-};
-
-// im2col conv: x [B][H+2][Wp][C] bf16; row m = (b, h, w), K byte kb =
-// tap (ky*3 + kx) * 2C + 2ci
-struct Im2colA {
-  const unsigned char* x;
-  int h, w, wp, c;
-  __device__ const unsigned char* base() const { return x; }
-  __device__ const unsigned char* row(long long m) const {
-    const long long t = m / w;
-    const long long b = t / h;
-    return x + ((b * (h + 2) + t % h) * wp + m % w) * c * 2LL;
-  }
-  __device__ long long koff(int kb) const {
-    const int run = 2 * c;
-    const int tap = kb / run;
-    return (static_cast<long long>(tap / 3) * wp + tap % 3) * run + kb % run;
   }
 };
 

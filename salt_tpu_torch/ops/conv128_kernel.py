@@ -1,4 +1,4 @@
-"""Wrapper of the deep-K im2col conv CUDA kernel (``csrc/conv128_im2col.cu``).
+"""Row 4, the im2col conv, on the VALID-conv kernel (``csrc/conv_valid.cu``).
 
 Counterpart of ``tools/pallas_conv.py::make_conv128_kernel`` (:35-88): the
 factory returns a callable ``(x_padded, w_flat) -> out``, x_padded [B, H+2,
@@ -12,22 +12,20 @@ W+8, C] (C a multiple of 128), w_flat [9C, F] with K index
   tile). There is no fallback.
 - ``launches`` counts kernel launches, and nothing else.
 
-The weights are transposed to [F, 9C] with torch on every call (295 KB at
-C = F = 128): the kernel reads both operands K-contiguous.
+The kernel takes ``w_flat`` as it is (its wgmma reads the weights N-major)
+and reads ``x_padded`` at columns < W+2 of its W+8-pixel rows. It picks
+its own tile (4 rows x 64 pixels); ``tile_h`` is checked, as the TPU
+kernel's contract, and does not reach the card.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from salt_tpu_torch.ops import build
+from salt_tpu_torch.ops import conv_valid
 from salt_tpu_torch.ops.probe_conv import WPAD, conv128_plain, on_card
 
 #: kernel launches since the last reset (set it to 0 to reset)
 launches = 0
-
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def make_conv128_kernel(tile_h: int, H: int, W: int, C: int, F: int):
@@ -52,13 +50,7 @@ def make_conv128_kernel(tile_h: int, H: int, W: int, C: int, F: int):
                           device=x_padded.device)
         if b == 0:
             return out
-        wt = w_flat.t().contiguous()
-        fn = build.function("conv128_im2col", "salt_conv128", _ARGTYPES)
-        with torch.cuda.device(x_padded.device):
-            rc = fn(x_padded.data_ptr(), wt.data_ptr(), out.data_ptr(), b, H,
-                    W, C, F, tile_h, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"conv128 kernel launch failed: cudaError {rc}")
+        conv_valid.launch(x_padded, w_flat, out, 3, W + WPAD)
         launches += 1
         return out
 

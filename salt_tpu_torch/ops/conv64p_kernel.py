@@ -1,4 +1,5 @@
-"""Wrappers of the pair-packed conv CUDA kernel (``csrc/conv64p.cu``).
+"""Wrappers of the pair-packed conv CUDA kernels: row 5 on the VALID-conv
+kernel (``csrc/conv_valid.cu``), row 7 on ``csrc/conv64p.cu``.
 
 Counterparts of ``tools/pallas_conv.py::make_conv64p_kernel`` (:115-170)
 and ``tools/pallas_conv2.py::make_conv64p_v2`` (:53-168): each factory
@@ -6,7 +7,10 @@ returns a callable ``(x_packed, w_packed) -> out`` with x_packed [B, H+2,
 (W+16)/2, 128], w_packed [768, 128] and out [B, H, W/2, 128] (pair-packed;
 ``out.reshape(B, H, W, 64)`` unpacks it).
 
-- A tensor on the CPU takes the plain version, ``ops.probe_conv.conv64p_plain``.
+- A tensor on the CPU takes the plain version: row 5
+  ``ops.probe_conv.valid_conv_plain`` (the VALID 3x2 conv 128 -> 128 over
+  the packed columns, the function its kernel computes), row 7
+  ``ops.probe_conv.conv64p_plain``.
 - A CUDA tensor launches the kernel on the current stream or raises: bf16
   (``int8=True``: int8) operands, contiguous and 16-byte aligned. There is
   no fallback.
@@ -17,8 +21,11 @@ returns a callable ``(x_packed, w_packed) -> out`` with x_packed [B, H+2,
 - ``launches`` counts launches of row 5 (``make_conv64p_kernel``),
   ``launches_v2`` those of row 7 (``make_conv64p_v2``), and nothing else.
 
-The weights are transposed to [128, 768] with torch on every call (196 KB
-in bf16): the kernel reads both operands K-contiguous.
+Row 5's kernel takes ``w_packed`` as it is, reads ``x_packed`` at packed
+columns < W/2 + 1 and picks its own tile (4 rows x 64 pairs); ``tile_h``
+is checked, as the TPU kernel's contract, and does not reach the card.
+Row 7's transposes the weights to [128, 768] with torch on every call
+(196 KB in bf16): it reads both operands K-contiguous.
 """
 from __future__ import annotations
 
@@ -26,9 +33,9 @@ import ctypes
 
 import torch
 
-from salt_tpu_torch.ops import build
+from salt_tpu_torch.ops import build, conv_valid
 from salt_tpu_torch.ops.probe_conv import (PAIR_K, WPAD2, conv64p_plain,
-                                           on_card)
+                                           on_card, valid_conv_plain)
 
 #: launches of make_conv64p_kernel's callables (set it to 0 to reset)
 launches = 0
@@ -54,6 +61,7 @@ def _geometry(tile_h: int, H: int, W: int, C: int) -> None:
 
 def _launch(x: torch.Tensor, w: torch.Tensor, H: int, W: int, tile_h: int,
             db: bool, int8: bool) -> torch.Tensor:
+    """Row 7's kernel, ``csrc/conv64p.cu``."""
     out = torch.empty((x.shape[0], H, W // 2, 128), dtype=torch.bfloat16,
                       device=x.device)
     if x.shape[0] == 0:
@@ -70,20 +78,22 @@ def _launch(x: torch.Tensor, w: torch.Tensor, H: int, W: int, tile_h: int,
 
 
 def make_conv64p_kernel(tile_h: int, H: int, W: int, C: int = 64):
-    """Row 5: the pair-packed conv, bf16 (fp32 on the CPU too), each stage
-    loaded and then computed."""
+    """Row 5: the pair-packed conv, bf16 (fp32 on the CPU too), as a VALID
+    3x2 conv 128 -> 128 over the packed columns."""
     _geometry(tile_h, H, W, C)
     x_shape = (None, H + 2, (W + WPAD2) // 2, 2 * C)
 
     def conv(x_packed: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
         global launches
-        if on_card("conv64p", x_packed, x_shape, w_packed, (PAIR_K, 2 * C),
-                   _BF16, _FP32):
-            out = _launch(x_packed, w_packed, H, W, tile_h, False, False)
-            if x_packed.shape[0]:
-                launches += 1
-            return out
-        return conv64p_plain(x_packed, w_packed, H, W)
+        if not on_card("conv64p", x_packed, x_shape, w_packed,
+                       (PAIR_K, 2 * C), _BF16, _FP32):
+            return valid_conv_plain(x_packed, w_packed, 3, 2, H, W // 2)
+        out = torch.empty((x_packed.shape[0], H, W // 2, 2 * C),
+                          dtype=torch.bfloat16, device=x_packed.device)
+        if x_packed.shape[0]:
+            conv_valid.launch(x_packed, w_packed, out, 2, (W + WPAD2) // 2)
+            launches += 1
+        return out
 
     return conv
 

@@ -28,7 +28,6 @@ import contextlib
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 WPAD = 8      # conv128 input width W+2 -> W+8
 WPAD2 = 16    # conv64p input width W+2 -> W+16 (P = (W+16)/2 packed columns)
@@ -110,17 +109,27 @@ def _out_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.bfloat16 if dtype == torch.int8 else dtype
 
 
+def valid_conv_plain(x: torch.Tensor, w_flat: torch.Tensor, kh: int,
+                     kw: int, h: int, w_out: int) -> torch.Tensor:
+    """VALID kh x kw conv of ``x`` [B, >=h+kh-1, >=w_out+kw-1, C] by
+    ``w_flat`` [kh kw C, F] with K index ``(ky*kw + kx)*C + c`` -> [B, h,
+    w_out, F]: the taps' shifted windows concatenated in K order, one
+    product. Reads no input column past ``w_out + kw - 1``. Both conv
+    kernels of ``csrc/conv_valid.cu`` compute it: the im2col conv (kw 3)
+    and the pair-packed conv (kw 2 over packed columns, C = 128)."""
+    with exact_fp32(x.device.type):
+        xf = x.float()
+        cols = torch.cat([xf[:, ky:ky + h, kx:kx + w_out, :]
+                          for ky in range(kh) for kx in range(kw)], dim=-1)
+        y = cols @ w_flat.float()
+    return y.to(_out_dtype(x.dtype))
+
+
 def conv128_plain(x_padded: torch.Tensor, w_flat: torch.Tensor, H: int,
                   W: int) -> torch.Tensor:
     """VALID 3x3 conv of ``x_padded[:, :, :W+2]`` [B, H+2, >=W+2, C] by
     ``w_flat`` [9C, F] -> [B, H, W, F] in ``x_padded``'s dtype."""
-    c = x_padded.shape[-1]
-    f = w_flat.shape[-1]
-    with exact_fp32(x_padded.device.type):
-        x = x_padded[:, :H + 2, :W + 2, :].float().permute(0, 3, 1, 2)
-        w = w_flat.float().reshape(3, 3, c, f).permute(3, 2, 0, 1)
-        y = F.conv2d(x, w)
-    return y.permute(0, 2, 3, 1).contiguous().to(_out_dtype(x_padded.dtype))
+    return valid_conv_plain(x_padded, w_flat, 3, 3, H, W)
 
 
 def conv64p_plain(x_packed: torch.Tensor, w_packed: torch.Tensor, H: int,

@@ -326,6 +326,30 @@ def test_conv64p_kernels_match_plain_version(cuda, b, h, w, tile_h, db):
         assert _ulp_rule(got, want, terms, 768) <= 1.0
 
 
+@pytest.mark.parametrize("b,h,w,tile_h", [
+    (1, 6, 2, 3), (3, 6, 20, 3), (1, 8, 20, 4), (3, 12, 130, 6),
+    (1, 4, 256, 4)])
+def test_conv64p_row5_ragged_and_unread_columns(cuda, b, h, w, tile_h):
+    """Row 5 (``csrc/conv_valid.cu``, KW 2) at heights and widths that its
+    4 x 64-pair tiles do not divide, batch 1 and 3; the packed columns
+    past W/2 hold NaN, which a load of them would carry into the output.
+    One bf16 ulp plus 2 K 2^-24 sum|x||w| (K = 768) of the plain version;
+    one launch a call."""
+    from salt_tpu_torch.ops import conv64p_kernel as k
+    from salt_tpu_torch.ops.probe_conv import conv64p_plain
+    x, wp = (t.to(cuda) for t in _packed(b, h, w, seed=b + h + w))
+    x[:, :, w // 2 + 1:] = float("nan")
+    before = (k.launches, k.launches_v2)
+    with torch.no_grad():
+        got = k.make_conv64p_kernel(tile_h, h, w)(x, wp)
+        torch.cuda.synchronize()
+        want = conv64p_plain(x, wp, h, w)
+        terms = conv64p_plain(x.float().abs(), wp.float().abs(), h, w)
+    assert (k.launches, k.launches_v2) == (before[0] + 1, before[1])
+    assert got.shape == (b, h, w // 2, 128) and bool(torch.isfinite(got).all())
+    assert _ulp_rule(got, want, terms, 768) <= 1.0
+
+
 @pytest.mark.parametrize("db", [False, True], ids=["db_off", "db_on"])
 def test_conv64p_int8_kernel_is_bit_exact(cuda, db):
     from salt_tpu_torch.ops import conv64p_kernel as k
@@ -341,9 +365,14 @@ def test_conv64p_int8_kernel_is_bit_exact(cuda, db):
 
 @pytest.mark.parametrize("b,h,w,c,f,tile_h", [
     (2, 32, 32, 128, 128, 16), (1, 16, 24, 256, 64, 8),
-    (1, 8, 40, 128, 192, 8)])
+    (1, 8, 40, 128, 192, 8), (3, 6, 24, 128, 128, 3),
+    (1, 6, 40, 256, 192, 3), (3, 6, 40, 128, 64, 2),
+    (1, 4, 130, 128, 128, 4)])
 def test_conv128_kernel_matches_plain_version(cuda, b, h, w, c, f, tile_h):
-    """Row 4 in bf16, K = 9C; the input columns past W+1 hold NaN."""
+    """Row 4 (``csrc/conv_valid.cu``, KW 3) in bf16, K = 9C; the input
+    columns past W+1 hold NaN. Heights and widths that the kernel's 4 x 64
+    tiles do not divide, F 64 / 128 / 192 (column tiles of 64 or 128), C
+    256 (four channel chunks), batch 1 and 3."""
     from salt_tpu_torch.ops import conv128_kernel as k
     from salt_tpu_torch.ops.probe_conv import conv128_plain
     rng = np.random.RandomState(c + f)

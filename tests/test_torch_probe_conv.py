@@ -22,7 +22,7 @@ from torch_parity import bf16_ulp_rule, load_tool
 from salt_tpu_torch.ops import conv64p_kernel, conv128_kernel
 from salt_tpu_torch.ops.probe_conv import (WPAD, WPAD2, conv64p_plain,
                                            conv128_plain, pack_pair_weights,
-                                           pack_pairs)
+                                           pack_pairs, valid_conv_plain)
 
 B, H, W = 2, 32, 32
 
@@ -86,6 +86,44 @@ def test_pair_packing_is_the_valid_conv():
         w.reshape(9 * 64, 64)), H, W)
     np.testing.assert_allclose(got.reshape(B, H, W, 64).numpy(),
                                want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_valid_conv_plain_is_the_pair_packed_conv():
+    """Row 5 as the VALID 3x2 conv 128 -> 128 over the packed columns (K
+    index (ky*2 + q)*128 + c), the function ``csrc/conv_valid.cu``
+    computes: equal to ``conv64p_plain`` within 1e-6 relative and to the
+    JAX row-5 kernel within 2e-4, fp32, every weight slot nonzero and NaN
+    in the packed columns past W/2 + 1."""
+    xp, wp, _, _ = _packed_inputs(seed=13, dense_weights=True)
+    x, w = torch.from_numpy(xp), torch.from_numpy(wp)
+    got = valid_conv_plain(x, w, 3, 2, H, W // 2)
+    assert got.shape == (B, H, W // 2, 128) and torch.isfinite(got).all()
+    want = conv64p_plain(x, w, H, W)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+    jax_out = _jax(pallas_conv.make_conv64p_kernel, 16, H, W)(
+        jnp.asarray(xp), jnp.asarray(wp))
+    np.testing.assert_allclose(got.numpy(), jax_out, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("kw,c,f", [(3, 128, 64), (2, 128, 128), (3, 64, 192)])
+def test_valid_conv_plain_matches_conv2d(kw, c, f):
+    """valid_conv_plain against ``F.conv2d`` of the same fp32 operands
+    (HWIO weights flattened in K order), within 2e-4; the input columns
+    past w_out + kw - 1 hold NaN and are never read."""
+    rng = np.random.RandomState(kw + c + f)
+    h, w_out = 6, 10
+    x = np.full((2, h + 2, w_out + kw + 3, c), np.nan, np.float32)
+    x[:, :, :w_out + kw - 1] = rng.randn(2, h + 2, w_out + kw - 1, c)
+    w = (rng.randn(3, kw, c, f) / np.sqrt(3 * kw * c)).astype(np.float32)
+    got = valid_conv_plain(torch.from_numpy(x),
+                           torch.from_numpy(w.reshape(3 * kw * c, f)), 3, kw,
+                           h, w_out)
+    want = torch.nn.functional.conv2d(
+        torch.from_numpy(x[:, :, :w_out + kw - 1]).permute(0, 3, 1, 2),
+        torch.from_numpy(w).permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_conv64p_matches_jax_bf16():
