@@ -18,9 +18,9 @@ Phases (each raises on failure; the script then exits non-zero):
    probe path — the probe harnesses as a user runs them, at their full
                 size (``python -m salt_tpu_torch.tools.conv_probe`` and
                 ``conv_probe2``: B 64, H = W = 128), which launch the
-                im2col conv and pair-packed conv (rows 4 and 5: the
-                VALID-conv kernel), the matmul and the pair-packed conv
-                variants (rows 6 and 7: the mma.sync kernel);
+                im2col conv and the pair-packed conv and its variants
+                (rows 4, 5 and 7: the VALID-conv kernel, row 7 also in
+                int8) and the matmul (row 6: the wgmma matmul kernel);
    probe kernels — those four rows (rows 4-7 of PERF.md's table)
                 against their plain versions at the same size (bf16 one
                 ulp plus a cancellation floor, int8 bit for bit), timed
@@ -927,16 +927,19 @@ def phase_probe_kernels(dev, card):
     ``F.conv2d`` (cuDNN, bf16, channels_last, VALID on the unpacked
     input) computes the same function: row 5 at tile_h 16, row 7 at
     tile_h 32 with db (and its int8 twin), row 4 at tile_h 16, row 6 at both
-    GEMMs; beside the plain version and the bound. Rows 4 and 5 run one
-    kernel (``csrc/conv_valid.cu``, the profiler's ``conv_valid_kernel``),
-    which picks its own tile: their tile_h lines run the same launches;
-    rows 6 and 7 run ``csrc/igemm.cuh`` (``RowMajorA``, ``PairPackedA``)."""
+    GEMMs (both in the record, under ``shapes``); beside the plain version
+    and the bound. Rows 4, 5 and 7 run one kernel (``csrc/conv_valid.cu``,
+    the profiler's ``conv_valid_kernel``; row 7 int8 its s8 instantiation),
+    which picks its own tile: their tile_h and db lines run the same
+    launches; row 7 int8's K-major weight copy is timed on a line of its
+    own. Row 6 runs ``csrc/matmul_wgmma.cu`` (``matmul_wgmma_kernel``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from salt_tpu_torch.ops.conv128_kernel import make_conv128_kernel
     from salt_tpu_torch.ops.conv64p_kernel import (make_conv64p_kernel,
                                                    make_conv64p_v2)
+    from salt_tpu_torch.ops.conv_valid import kmajor_weights
     from salt_tpu_torch.ops.matmul_kernel import make_matmul_kernel
     from salt_tpu_torch.ops.probe_conv import (conv128_plain, conv64p_plain,
                                                matmul_plain,
@@ -1038,7 +1041,7 @@ def phase_probe_kernels(dev, card):
             timed_by=t["timed_by"], card=repr(card))
         rec = dict(variant=variant, ms=t["ms"], plain_ms=t["plain_ms"],
                    library_ms=lib, bound_ms=bound_ms, bound_by=bound_by)
-        records.setdefault(key, rec)
+        records.setdefault(key, []).append(rec)
         return rec
 
     conv5 = make_conv64p_kernel(16, H, W)
@@ -1047,12 +1050,20 @@ def phase_probe_kernels(dev, card):
     library64 = lambda: F.conv2d(x_nchw, w_oihw)
     record("conv64p", "th16", lambda: conv5(x, wp3), "conv_valid_kernel",
            lambda: conv64p_plain(x, wp3, H, W), library64, c64_bytes, c64_ops)
-    record("conv64p_v2", "th32 +db bf16", lambda: v2(x, wp3), "PairPackedA",
-           lambda: conv64p_plain(x, wp3, H, W), library64, c64_bytes, c64_ops)
+    record("conv64p_v2", "th32 +db bf16", lambda: v2(x, wp3),
+           "conv_valid_kernel", lambda: conv64p_plain(x, wp3, H, W),
+           library64, c64_bytes, c64_ops)
     record("conv64p_v2_int8", "th32 +db INT8", lambda: v2q(xq, wq3),
-           "PairPackedA", lambda: conv64p_plain(xq, wq3, H, W), None,
+           "conv_valid_kernel", lambda: conv64p_plain(xq, wq3, H, W), None,
            x.numel() + 768 * 128 + B * H * PO * 128 * 2, c64_ops,
            INT8_DENSE_OPS)
+    # the int8 call's K-major weight copy (98 KB), outside its kernel time
+    copy_ms = device_ms(lambda: kmajor_weights(wq3), iters=20)
+    copy_bound = 2 * wq3.numel() / HBM_BYTES_PER_S * 1e3
+    log("probe_kernel", name="conv64p_v2_int8 weight copy",
+        variant="kmajor_weights [768,128] -> [128,768] int8",
+        ms=f"{copy_ms:.5f}", bound_ms=f"{copy_bound:.5f}", bound_by="bytes",
+        card=repr(card))
     conv4 = make_conv128_kernel(16, H, W, 128, 128)
     x4v = x4[:, :, :W + 2].contiguous().permute(0, 3, 1, 2)
     w4_oihw = w4.reshape(3, 3, 128, 128).permute(3, 2, 0, 1).contiguous()
@@ -1064,7 +1075,8 @@ def phase_probe_kernels(dev, card):
     for m, k, n in gemms:
         a, b = mats[m]
         mm = make_matmul_kernel(m, k, n)
-        record("matmul", f"{m}x{k}x{n}", lambda: mm(a, b), "RowMajorA",
+        record("matmul", f"{m}x{k}x{n}", lambda: mm(a, b),
+               "matmul_wgmma_kernel",
                lambda: matmul_plain(a, b), lambda: torch.matmul(a, b),
                (m * k + k * n + m * n) * 2, 2 * m * k * n)
     sources = dict(
@@ -1072,13 +1084,13 @@ def phase_probe_kernels(dev, card):
                  "tools/pallas_conv.py:35"),
         conv64p=("salt_tpu_torch/csrc/conv_valid.cu",
                  "tools/pallas_conv.py:115"),
-        matmul=("salt_tpu_torch/csrc/matmul_bf16.cu",
+        matmul=("salt_tpu_torch/csrc/matmul_wgmma.cu",
                 "tools/pallas_conv.py:173"),
-        conv64p_v2=("salt_tpu_torch/csrc/conv64p.cu",
+        conv64p_v2=("salt_tpu_torch/csrc/conv_valid.cu",
                     "tools/pallas_conv2.py:53"))
     out = {}
     for key, (source, replaces) in sources.items():
-        rec = records[key]
+        rec, *more = records[key]
         out[key] = {"name": key, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": None,
                     "max_abs_err": err[key], "ms": rec["ms"],
@@ -1086,10 +1098,14 @@ def phase_probe_kernels(dev, card):
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"],
                     "variant": rec["variant"]}
-    int8 = records["conv64p_v2_int8"]
+        if more:
+            out[key]["shapes"] = [rec, *more]
+    int8 = records["conv64p_v2_int8"][0]
     out["conv64p_v2"].update(int8_ms=int8["ms"],
                              int8_plain_ms=int8["plain_ms"],
-                             int8_bound_ms=int8["bound_ms"])
+                             int8_bound_ms=int8["bound_ms"],
+                             int8_bound_by=int8["bound_by"],
+                             int8_weight_copy_ms=copy_ms)
     return out
 
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels,
-// conv3x3_pair.cu and conv_valid.cu: mbarriers, TMA loads and stores,
-// wgmma with A in registers and B by shared-memory descriptor, and the
+// conv3x3_pair.cu, conv_valid.cu and matmul_wgmma.cu: mbarriers, TMA loads
+// and stores, wgmma (bf16 with A in registers or by descriptor, s8 with A
+// in registers) with B by shared-memory descriptor, and the
 // tensor-map encoder (cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so nothing links against libcuda).
 #pragma once
@@ -71,6 +72,14 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
       "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* m,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* m,
                                              uint32_t src, int c0, int c1,
                                              int c2, int c3) {
@@ -91,7 +100,10 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
-// K-major, 8-row atoms 1024 bytes apart
+// K-major: rows of 128 bytes (64 bf16 or 128 s8 k values) in 8-row atoms
+// 1024 bytes apart, as TMA's 128-byte swizzle leaves a box; a k step (16
+// bf16, 32 s8) is +32 bytes of `addr` inside the atom. wgmma's B, or the
+// A of wgmma_ss_tn.
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
   return smem_desc(addr, 0, 1024);
 }
@@ -112,9 +124,36 @@ __device__ __forceinline__ void fence_operand(float* d) {
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int kRegs = 32>
+__device__ __forceinline__ void fence_operand(int32_t* d) {
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
-// d[64 x N] += a[64 x 16] (registers) * B[16 x N] (descriptor); B is
-// K-major (kTransB 0) or MN-major (kTransB 1)
+// The wgmma wrappers' operand lists: 32 or 64 accumulator registers (N 64
+// or 128 of an m64 tile), fp32 ("+f") or s32 ("+r"), numbered from %0.
+#define SM90_D32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}"
+#define SM90_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define SM90_ACC8(c, d, i)                                                \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]),            \
+      c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define SM90_ACC32(c, d) \
+  SM90_ACC8(c, d, 0), SM90_ACC8(c, d, 8), SM90_ACC8(c, d, 16),            \
+      SM90_ACC8(c, d, 24)
+#define SM90_ACC64(c, d) \
+  SM90_ACC32(c, d), SM90_ACC8(c, d, 32), SM90_ACC8(c, d, 40),             \
+      SM90_ACC8(c, d, 48), SM90_ACC8(c, d, 56)
+
+// d[64 x N] += a[64 x 16] (registers) * B[16 x N] (descriptor), bf16 ->
+// fp32; B is K-major (kTransB 0) or MN-major (kTransB 1)
 template <int N = 64, int kTransB = 0>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t desc);
@@ -124,17 +163,9 @@ __device__ __forceinline__ void wgmma_rs<64, 0>(float* d, const uint32_t* a,
                                                 uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : SM90_ACC32("+f", d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
 }
 
@@ -143,17 +174,9 @@ __device__ __forceinline__ void wgmma_rs<64, 1>(float* d, const uint32_t* a,
                                                 uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SM90_ACC32("+f", d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
 }
 
@@ -162,35 +185,80 @@ __device__ __forceinline__ void wgmma_rs<128, 1>(float* d, const uint32_t* a,
                                                  uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SM90_ACC64("+f", d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
 }
 
-// A 2- to 4-D tensor map of bf16 with a 128-byte swizzle (the innermost
-// box is 64 elements, 128 bytes); dims and box innermost first, strides in
-// bytes of dims 1.. . Returns 0 or a cudaError_t.
+// d[64 x N] += a[64 x 32] (registers) * B[32 x N] (descriptor), s8 -> s32.
+// wgmma takes 8-bit B K-major only (no transpose): B is [N][32 k] under
+// b_desc, a k32 step 32 bytes on. a's fragment holds the same bytes as a
+// bf16 k16 fragment (ldmatrix.x4 of the same 16-byte row pieces).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_s8(int32_t* d, const uint32_t* a,
+                                            uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<64>(int32_t* d, const uint32_t* a,
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " SM90_D32
+      ", {%32, %33, %34, %35}, %36, p;\n}\n"
+      : SM90_ACC32("+r", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<128>(int32_t* d,
+                                                 const uint32_t* a,
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " SM90_D64
+      ", {%64, %65, %66, %67}, %68, p;\n}\n"
+      : SM90_ACC64("+r", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// d[64 x N] += A[64 x 16] * B[16 x N], both by descriptor, bf16 -> fp32:
+// A K-major (b_desc's layout: [64 m][64 k] swizzled rows), B MN-major
+// (tnspB)
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tn(float* d, uint64_t a_desc,
+                                            uint64_t b_desc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tn<64>(float* d, uint64_t a_desc,
+                                                uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : SM90_ACC32("+f", d)
+      : "l"(a_desc), "l"(b_desc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tn<128>(float* d, uint64_t a_desc,
+                                                 uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : SM90_ACC64("+f", d)
+      : "l"(a_desc), "l"(b_desc));
+}
+
+// A 2- to 4-D tensor map of `type` (bf16, or bytes for s8) with a
+// 128-byte swizzle (the innermost box is 128 bytes: 64 bf16, 128 s8);
+// dims and box innermost first, in elements, strides in bytes of dims 1..
+// . Out-of-bounds elements load as zero bits. Returns 0 or a cudaError_t.
 inline int encode(CUtensorMap* m, const void* ptr, int rank,
                   const uint64_t* dims, const uint64_t* strides,
-                  const uint32_t* box) {
+                  const uint32_t* box,
+                  CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static PFN_cuTensorMapEncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -204,7 +272,7 @@ inline int encode(CUtensorMap* m, const void* ptr, int rank,
   }
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult rc = fn(
-      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+      m, type, rank, const_cast<void*>(ptr), dims,
       strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

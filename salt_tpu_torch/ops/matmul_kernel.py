@@ -1,4 +1,5 @@
-"""Wrapper of the tiled matmul CUDA kernel (``csrc/matmul_bf16.cu``).
+"""Wrapper of the matmul CUDA kernel (``csrc/matmul_wgmma.cu``: TMA +
+wgmma, persistent blocks).
 
 Counterpart of ``tools/pallas_conv.py::make_matmul_kernel`` (:173-200):
 the factory returns a callable ``(a, b) -> a @ b`` for row-major a [M, K]
@@ -10,8 +11,10 @@ and b [K, N], fp32 accumulation, out in a's dtype.
   fallback, and cuBLAS is never called.
 - ``launches`` counts kernel launches, and nothing else.
 
-b is transposed to [N, K] with torch on every call (196 KB at K 768, N
-128): the kernel reads both operands K-contiguous.
+The kernel reads a and b as they are (b N-major through wgmma's
+transposed B: no transposed copy) and picks its own tile (128 rows x 128
+or 64 columns); ``tile_m`` is checked (``M % tile_m``), as the TPU
+kernel's contract, and does not reach the card.
 """
 from __future__ import annotations
 
@@ -25,9 +28,9 @@ from salt_tpu_torch.ops.probe_conv import matmul_plain, on_card
 #: kernel launches since the last reset (set it to 0 to reset)
 launches = 0
 
+#: salt_matmul_wgmma(a, b, y, m, k, n, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def make_matmul_kernel(M: int, K: int, N: int, tile_m: int = 2048):
@@ -48,11 +51,10 @@ def make_matmul_kernel(M: int, K: int, N: int, tile_m: int = 2048):
             raise ValueError(f"matmul kernel takes K and N multiples of 64, "
                              f"got K = {K}, N = {N}")
         out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
-        bt = b.t().contiguous()
-        fn = build.function("matmul_bf16", "salt_matmul_bf16", _ARGTYPES)
+        fn = build.function("matmul_wgmma", "salt_matmul_wgmma", _ARGTYPES)
         with torch.cuda.device(a.device):
-            rc = fn(a.data_ptr(), bt.data_ptr(), out.data_ptr(), M, K, N,
-                    tile_m, torch.cuda.current_stream().cuda_stream)
+            rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
+                    torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"matmul kernel launch failed: cudaError {rc}")
         launches += 1

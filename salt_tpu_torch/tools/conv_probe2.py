@@ -4,9 +4,10 @@
     python -m salt_tpu_torch.tools.conv_probe2 [--batch 64] [--size 128] \
         [--iters 20] [--windows 2] [--device cuda|cpu]
 
-Each variant of ``ops.conv64p_kernel.make_conv64p_v2`` (tile_h, ``db``:
-the input stages double-buffered with cp.async, ``int8``: s8 x s8 -> s32
-operands) is held against the plain fp32 conv of the bf16 operands: the
+Each variant of ``ops.conv64p_kernel.make_conv64p_v2`` (tile_h and
+``db``, which the card's kernel takes as the TPU kernel's contract: its
+TMA input ring always double-buffers; ``int8``: s8 x s8 -> s32 operands)
+is held against the plain fp32 conv of the bf16 operands: the
 relative error (max |diff| / max |plain|) must be below 2e-2 in bf16 and
 5e-2 in int8, whose operands are the JAX probe's symmetric per-tensor
 quantization (x and the packed weights each scaled so their largest |v|

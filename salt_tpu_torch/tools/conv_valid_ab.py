@@ -1,6 +1,6 @@
-"""A/B of the VALID-conv kernel (``csrc/conv_valid.cu``, rows 4 and 5 of
-the probe kernels) against variants of its own source and cuDNN, at the
-probes' full size.
+"""A/B of the VALID-conv kernel (``csrc/conv_valid.cu``, rows 4, 5 and 7
+of the probe kernels) against variants of its own source and cuDNN, at
+the probes' full size.
 
     python -m salt_tpu_torch.tools.conv_valid_ab [--variants a,b] \
         [--batch 64] [--size 128] [--iters 100] [--windows 8]
@@ -8,7 +8,7 @@ probes' full size.
 Each variant is the checked-in source with a few text edits (``VARIANTS``;
 the run fails if an edit no longer applies), compiled by ``nvcc`` into
 ``salt_tpu_torch/build/ab/`` next to the others, all at once, and called
-through its own ``salt_conv_valid``:
+through its own ``salt_conv_valid`` (and ``salt_conv_valid_s8``):
 
 - ``kernel``: the source as it is;
 - ``no_setmaxnreg``: a producer warp in place of the producer warpgroup and
@@ -25,14 +25,17 @@ through its own ``salt_conv_valid``:
 
 Row 4 is x [B, H+2, W+8, 128] (columns past W+1 NaN) by w_flat [1152, 128];
 row 5 x_packed [B, H+2, (W+16)/2, 128] by w_packed [768, 128], every slot
-random. The exact variants are held to one bf16 ulp plus 2 K 2^-24
-sum|x||w| of ``ops.probe_conv.valid_conv_plain``. Times: CUDA events
-around ``--iters`` launches, ``--windows`` windows with the variants and
-cuDNN (``F.conv2d`` of the same function: 3x3 on row 4's input, 3x2 128
--> 128 on the packed input) interleaved, each window starting one probe
-later than the last; min and median per variant. One
-JSON line per (row, variant) and the card's name and power limit. Needs a
-CUDA card and ``nvcc``.
+random; row 7 int8 the same in full-range int8 (the s8 instantiation, the
+weights K-major, ``ops.conv_valid.kmajor_weights``), with the variants
+that keep the s8 path's byte counts (not ``half_weights``). The exact
+variants are held to one bf16 ulp plus 2 K 2^-24 sum|x||w| of
+``ops.probe_conv.valid_conv_plain`` (int8: bit for bit). Times: CUDA
+events around ``--iters`` launches, ``--windows`` windows with the
+variants and cuDNN (``F.conv2d`` of the same function: 3x3 on row 4's
+input, 3x2 128 -> 128 on the packed input; none for int8) interleaved,
+each window starting one probe later than the last; min and median per
+variant. One JSON line per (row, variant) and the card's name and power
+limit. Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from salt_tpu_torch.ops import build
+from salt_tpu_torch.ops.conv_valid import kmajor_weights
 from salt_tpu_torch.ops.probe_conv import valid_conv_plain
 from salt_tpu_torch.tools.timing import window_ms
 
@@ -63,8 +67,9 @@ _ST_SHARED = [(
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const __nv_bfloat162 h = __floats2bfloat162_rn(
-                acc[jr][(j + (i >> 1)) * 4 + (i & 1) * 2],
-                acc[jr][(j + (i >> 1)) * 4 + (i & 1) * 2 + 1]);
+                static_cast<float>(acc[jr][(j + (i >> 1)) * 4 + (i & 1) * 2]),
+                static_cast<float>(
+                    acc[jr][(j + (i >> 1)) * 4 + (i & 1) * 2 + 1]));
             v[i] = *reinterpret_cast<const uint32_t*>(&h);
           }
           const int jj = j + sj;
@@ -80,7 +85,8 @@ _ST_SHARED = [(
           for (int half = 0; half < 2; ++half) {
             const int p = warp * 16 + (lane >> 2) + half * 8;
             const __nv_bfloat162 h = __floats2bfloat162_rn(
-                acc[jr][j * 4 + half * 2], acc[jr][j * 4 + half * 2 + 1]);
+                static_cast<float>(acc[jr][j * 4 + half * 2]),
+                static_cast<float>(acc[jr][j * 4 + half * 2 + 1]));
             asm volatile("st.shared.b32 [%0], %1;\\n" ::"r"(
                              stage + (j >> 3) * kAtomBytes + p * 128 +
                              (((j & 7) ^ (p & 7)) << 4) + (lane & 3) * 4),
@@ -89,9 +95,10 @@ _ST_SHARED = [(
           }
         }""")]
 _NO_DRAIN = [
-    ("  float acc[kRW][C::kAcc];\n  for (int s = 0; s < n_steps; ++s) {",
-     "  float acc[kRW][C::kAcc];\n  int rslot = 0;\n  bool carry = false;\n"
-     "  for (int s = 0; s < n_steps; ++s) {"),
+    ("  typename C::Acc acc[kRW][C::kAcc];\n"
+     "  for (int s = 0; s < n_steps; ++s) {",
+     "  typename C::Acc acc[kRW][C::kAcc];\n  int rslot = 0;\n"
+     "  bool carry = false;\n  for (int s = 0; s < n_steps; ++s) {"),
     ("    int rslot = wslot;                       "
      "// the next tap to release\n    load_a(0, a[0]);",
      "    if (carry) wgmma_wait<1>();\n    load_a(0, a[0]);"),
@@ -133,15 +140,20 @@ _WEIGHTS_ONCE = [
 _HALF_WEIGHTS = [
     ("        mbar_expect_tx(wfull + 8 * wslot, C::kTapBytes);",
      "        mbar_expect_tx(wfull + 8 * wslot, kAtomBytes);"),
-    ("        for (int nb = 0; nb < NT / 64; ++nb)\n          tma_load_2d(",
-     "        for (int nb = 0; nb < 1; ++nb)\n          tma_load_2d("),
+    ("          for (int nb = 0; nb < NT / 64; ++nb)\n            tma_load_2d(",
+     "          for (int nb = 0; nb < 1; ++nb)\n            tma_load_2d("),
 ]
 _LOADS_ONLY = [(
-    """      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<NT, 1>(acc[j], a[u & 1][kk],
-                        smem_desc(w + kk * 2048, kAtomBytes, 1024));
+    """      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (kS8)
+          wgmma_rs_s8<NT>(acc[j], a[u & 1][kk], b_desc(w + kk * 32));
+        else
+          wgmma_rs<NT, 1>(acc[j], a[u & 1][kk],
+                          smem_desc(w + kk * 2048, kAtomBytes, 1024));
+      }
 """, "")]
 #: name -> (text edits of csrc/conv_valid.cu, computes the conv exactly)
+#: (``half_weights`` halves the bf16 weight boxes only: not run in int8)
 VARIANTS = {
     "kernel": ([], True),
     "no_setmaxnreg": (_NO_SETMAXNREG, True),
@@ -184,7 +196,7 @@ def variant_source(name: str) -> str:
 
 
 def build_variants(names):
-    """name -> (ctypes function, ptxas lines), built in parallel."""
+    """name -> (ctypes library, ptxas lines), built in parallel."""
     out_dir = os.path.join(build.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
@@ -204,11 +216,12 @@ def build_variants(names):
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name}: nvcc exit "
                                f"{proc.returncode}\n{log}")
-        fn = ctypes.CDLL(lib).salt_conv_valid
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        fns[name] = (fn, [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln
-                          or "C7512" in ln])
+        dll = ctypes.CDLL(lib)
+        for fn in (dll.salt_conv_valid, dll.salt_conv_valid_s8):
+            fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        fns[name] = (dll, [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln
+                           or "C751" in ln])
     return fns
 
 
@@ -236,17 +249,27 @@ def main(argv=None) -> int:
         print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
     b, h, w = args.batch, args.size, args.size
     g = torch.Generator(dev).manual_seed(0)
-    rows = {"row4": (3, w, w + 8, torch.randn), "row5": (2, w // 2,
-                                                         (w + 16) // 2,
-                                                         torch.rand)}
+    rows = {"row4": (3, w, w + 8, False), "row5": (2, w // 2, (w + 16) // 2,
+                                                    False),
+            "row7_int8": (2, w // 2, (w + 16) // 2, True)}
     failed = []
-    for row, (kw, w_out, row_pixels, draw) in rows.items():
+    for row, (kw, w_out, row_pixels, s8) in rows.items():
         k = 3 * kw * 128
-        x = draw(b, h + 2, row_pixels, 128, generator=g, device=dev)
-        x[:, :, w_out + kw - 1:] = float("nan")
-        x = x.bfloat16()
-        wt = (torch.randn(k, 128, generator=g, device=dev) / k ** 0.5
-              ).bfloat16()
+        shape = (b, h + 2, row_pixels, 128)
+        if s8:
+            x = torch.randint(-128, 128, shape, generator=g, device=dev,
+                              dtype=torch.int8)
+            x[:, :, w_out + kw - 1:] = 127
+            wt = torch.randint(-128, 128, (k, 128), generator=g, device=dev,
+                               dtype=torch.int8)
+        else:
+            draw = torch.randn if kw == 3 else torch.rand
+            x = draw(*shape, generator=g, device=dev)
+            x[:, :, w_out + kw - 1:] = float("nan")
+            x = x.bfloat16()
+            wt = (torch.randn(k, 128, generator=g, device=dev) / k ** 0.5
+                  ).bfloat16()
+        w_arg = kmajor_weights(wt) if s8 else wt
         with torch.no_grad():
             want = valid_conv_plain(x, wt, 3, kw, h, w_out)
             terms = valid_conv_plain(x.float().abs().nan_to_num(),
@@ -254,23 +277,29 @@ def main(argv=None) -> int:
         out = torch.empty(b, h, w_out, 128, dtype=torch.bfloat16, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         calls, errs = {}, {}
-        for name, (fn, _) in fns.items():
+        for name, (dll, _) in fns.items():
+            if s8 and name == "half_weights":
+                continue
+            fn = dll.salt_conv_valid_s8 if s8 else dll.salt_conv_valid
+
             def call(_i=0, fn=fn):
-                rc = fn(x.data_ptr(), wt.data_ptr(), out.data_ptr(), b, h,
+                rc = fn(x.data_ptr(), w_arg.data_ptr(), out.data_ptr(), b, h,
                         w_out, kw, 128, 128, row_pixels, stream)
                 if rc != 0:
                     raise RuntimeError(f"conv_valid launch: cudaError {rc}")
             out.fill_(float("nan"))
             call()
             torch.cuda.synchronize()
-            errs[name] = _ulp_ratio(out, want, terms, k)
+            errs[name] = (0.0 if torch.equal(out, want) else float("inf")
+                          ) if s8 else _ulp_ratio(out, want, terms, k)
             if VARIANTS[name][1] and not errs[name] <= 1.0:
                 failed.append(f"{row} {name}: {errs[name]} x the tolerance")
             calls[name] = call
         del want, terms
-        xn = x[:, :, :w_out + kw - 1].contiguous().permute(0, 3, 1, 2)
-        wn = wt.reshape(3, kw, 128, 128).permute(3, 2, 0, 1).contiguous()
-        calls["cudnn"] = lambda _i=0: F.conv2d(xn, wn)
+        if not s8:
+            xn = x[:, :, :w_out + kw - 1].contiguous().permute(0, 3, 1, 2)
+            wn = wt.reshape(3, kw, 128, 128).permute(3, 2, 0, 1).contiguous()
+            calls["cudnn"] = lambda _i=0, xn=xn, wn=wn: F.conv2d(xn, wn)
         times = {name: [] for name in calls}
         with torch.no_grad():
             for call in calls.values():

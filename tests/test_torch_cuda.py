@@ -308,8 +308,9 @@ def _packed(b, h, w, seed, dtype=torch.bfloat16):
     (2, 128, 128, 64, False)])
 def test_conv64p_kernels_match_plain_version(cuda, b, h, w, tile_h, db):
     """Rows 5 and 7 in bf16 within one bf16 ulp plus 2 K 2^-24 sum|x||w|
-    (K = 768) of the plain version; (3, 8, 20, 4) has 40-pair grid tiles,
-    so the kernel's 128-row tiles are ragged there."""
+    (K = 768) of the plain version, and equal to each other (one kernel);
+    (3, 8, 20, 4) has 40-pair grid tiles, so the kernel's 4 x 64-pair
+    tiles are ragged there."""
     from salt_tpu_torch.ops import conv64p_kernel as k
     from salt_tpu_torch.ops.probe_conv import conv64p_plain
     x, wp = (t.to(cuda) for t in _packed(b, h, w, seed=h + w))
@@ -324,6 +325,7 @@ def test_conv64p_kernels_match_plain_version(cuda, b, h, w, tile_h, db):
     for got in (got5, got7):
         assert got.shape == (b, h, w // 2, 128) and got.dtype == torch.bfloat16
         assert _ulp_rule(got, want, terms, 768) <= 1.0
+    assert torch.equal(got5, got7)
 
 
 @pytest.mark.parametrize("b,h,w,tile_h", [
@@ -348,6 +350,31 @@ def test_conv64p_row5_ragged_and_unread_columns(cuda, b, h, w, tile_h):
     assert (k.launches, k.launches_v2) == (before[0] + 1, before[1])
     assert got.shape == (b, h, w // 2, 128) and bool(torch.isfinite(got).all())
     assert _ulp_rule(got, want, terms, 768) <= 1.0
+
+
+@pytest.mark.parametrize("b,h,w", [
+    (1, 6, 2), (3, 6, 20), (3, 12, 130), (1, 4, 256)])
+def test_conv64p_int8_ragged_and_unread_columns(cuda, b, h, w):
+    """Row 7 in int8 (``csrc/conv_valid.cu``, s8 wgmma, K-major weights)
+    bit for bit against ``valid_conv_plain`` at heights and widths that its
+    4 x 64-pair tiles do not divide, batch 1 and 3; full-range operands
+    (-128 in the weights, -127 .. 127 in x) and 127 in the packed columns
+    past W/2, which a load of them would carry into the output. One launch
+    a call."""
+    from salt_tpu_torch.ops import conv64p_kernel as k
+    from salt_tpu_torch.ops.probe_conv import valid_conv_plain
+    x, wp = (t.to(cuda) for t in _packed(b, h, w, seed=b + h + w,
+                                         dtype=torch.int8))
+    wp[0, :64] = -128
+    x[:, :, w // 2 + 1:] = 127
+    before = (k.launches, k.launches_v2)
+    with torch.no_grad():
+        got = k.make_conv64p_v2(h, h, w, db=True, int8=True)(x, wp)
+        torch.cuda.synchronize()
+    assert (k.launches, k.launches_v2) == (before[0], before[1] + 1)
+    want = valid_conv_plain(x, wp, 3, 2, h, w // 2)
+    assert got.shape == (b, h, w // 2, 128) and got.dtype == torch.bfloat16
+    assert bool((wp == -128).any()) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("db", [False, True], ids=["db_off", "db_on"])
@@ -409,6 +436,32 @@ def test_matmul_kernel_matches_plain_version(cuda, m, kk, n, tile_m):
     want = matmul_plain(a, b)
     terms = matmul_plain(a.float().abs(), b.float().abs())
     assert got.shape == (m, n) and _ulp_rule(got, want, terms, kk) <= 1.0
+
+
+@pytest.mark.parametrize("m,kk,n", [
+    (100, 64, 64), (1000, 576, 64), (777, 768, 128), (4099, 1152, 192),
+    (300, 64, 192), (2500, 1152, 64), (513, 576, 128), (6000, 768, 128)])
+def test_matmul_kernel_ragged_rows(cuda, m, kk, n):
+    """Row 6 (``csrc/matmul_wgmma.cu``) at M that its 128-row tiles do not
+    divide (tile_m = M), K 64 / 576 / 768 / 1152 and N 64 / 128 / 192
+    (column tiles of 64 or 128), within one bf16 ulp plus 2 K 2^-24
+    sum|a||b|; one launch a call, and b is not changed."""
+    from salt_tpu_torch.ops import matmul_kernel as k
+    from salt_tpu_torch.ops.probe_conv import matmul_plain
+    rng = np.random.RandomState(m + kk + n)
+    a = torch.from_numpy(rng.randn(m, kk).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    b = torch.from_numpy((rng.randn(kk, n) / np.sqrt(kk)).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+    b_before = b.clone()
+    before = k.launches
+    got = k.make_matmul_kernel(m, kk, n, tile_m=m)(a, b)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1 and torch.equal(b, b_before)
+    want = matmul_plain(a, b)
+    terms = matmul_plain(a.float().abs(), b.float().abs())
+    assert got.shape == (m, n) and bool(torch.isfinite(got.float()).all())
+    assert _ulp_rule(got, want, terms, kk) <= 1.0
 
 
 def test_probe_kernels_refuse_bad_inputs(cuda):

@@ -19,7 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from torch_parity import bf16_ulp_rule, load_tool
 
-from salt_tpu_torch.ops import conv64p_kernel, conv128_kernel
+from salt_tpu_torch.ops import conv64p_kernel, conv128_kernel, conv_valid
 from salt_tpu_torch.ops.probe_conv import (WPAD, WPAD2, conv64p_plain,
                                            conv128_plain, pack_pair_weights,
                                            pack_pairs, valid_conv_plain)
@@ -181,6 +181,61 @@ def test_conv64p_v2_int8_is_bit_exact(dots, db):
     assert np.array_equal(
         got.float().numpy(),
         torch.from_numpy(ints.astype(np.float32)).bfloat16().float().numpy())
+
+
+def _int8_packed(seed):
+    """Full-range int8 x_packed (127 in the packed columns past W/2, which
+    no output reads) and w_packed (-128 included)."""
+    rng = np.random.RandomState(seed)
+    xq = rng.randint(-128, 128, (B, H + 2, (W + WPAD2) // 2, 128)
+                     ).astype(np.int8)
+    xq[:, :, W // 2 + 1:] = 127
+    wq = rng.randint(-128, 128, (768, 128)).astype(np.int8)
+    wq[0, :64] = -128
+    return xq, wq
+
+
+def test_conv64p_v2_int8_cpu_path_is_the_jax_kernel():
+    """Row 7's CPU path is ``valid_conv_plain`` with KW 2 over the packed
+    columns, the function its kernel computes: bit for bit equal to it and
+    to the JAX row-7 int8 kernel in interpret mode, with 127 in the
+    columns past W/2 + 1."""
+    xq, wq = _int8_packed(seed=17)
+    want = _jax(pallas_conv2.make_conv64p_v2, 32, H, W, db=True, int8=True)(
+        jnp.asarray(xq), jnp.asarray(wq))
+    x, w = torch.from_numpy(xq), torch.from_numpy(wq)
+    got = conv64p_kernel.make_conv64p_v2(32, H, W, db=True, int8=True)(x, w)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, W // 2, 128)
+    assert torch.equal(got, valid_conv_plain(x, w, 3, 2, H, W // 2))
+    assert np.array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("db", [False, True], ids=["db_off", "db_on"])
+def test_conv64p_v2_and_row5_are_one_function_bf16(db):
+    """Rows 7 and 5 give identical bf16 outputs (one kernel, one plain
+    version), finite with NaN in the packed columns past W/2 + 1."""
+    xp, wp, _, _ = _packed_inputs(seed=19, dense_weights=True)
+    xb, wb = torch.from_numpy(xp).bfloat16(), torch.from_numpy(wp).bfloat16()
+    got7 = conv64p_kernel.make_conv64p_v2(16, H, W, db=db)(xb, wb)
+    got5 = conv64p_kernel.make_conv64p_kernel(16, H, W)(xb, wb)
+    assert got7.dtype == torch.bfloat16 and bool(torch.isfinite(got7).all())
+    assert torch.equal(got7, got5)
+
+
+def test_kmajor_weights_product_is_the_conv():
+    """``conv_valid.kmajor_weights``, the int8 kernel's weight operand
+    [F, K] (wt[f, k] = w[k, f]): the taps' windows times it, summed over
+    k as the kernel sums, reproduce ``valid_conv_plain`` bit for bit."""
+    xq, wq = _int8_packed(seed=23)
+    x, w = torch.from_numpy(xq), torch.from_numpy(wq)
+    wt = conv_valid.kmajor_weights(w)
+    assert wt.shape == (128, 768) and wt.is_contiguous()
+    assert torch.equal(wt, w.t())
+    cols = torch.cat([x[:, ky:ky + H, q:q + W // 2].double()
+                      for ky in range(3) for q in range(2)], dim=-1)
+    got = torch.einsum("bhpk,fk->bhpf", cols, wt.double())
+    want = valid_conv_plain(x, w, 3, 2, H, W // 2)
+    assert torch.equal(got.float().bfloat16(), want)
 
 
 def _conv128_inputs(c, f, seed):

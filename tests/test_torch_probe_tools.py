@@ -1,6 +1,9 @@
 """The port's probe harnesses (``salt_tpu_torch.tools``) on the CPU at a
-tiny size, and the conv dispatch's A/B scope (``ops.conv_pair.make_conv_fn
-(scope)``) against the JAX dispatch's ``SALT_TPU_PALLAS_CONV_SCOPE``."""
+tiny size, the kernel A/B harnesses' source variants, and the conv
+dispatch's A/B scope (``ops.conv_pair.make_conv_fn(scope)``) against the
+JAX dispatch's ``SALT_TPU_PALLAS_CONV_SCOPE``."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -13,9 +16,10 @@ from torch_parity import flagship_config, port_config
 from salt_tpu.models.registry import build_model as jax_build_model
 from salt_tpu.ops import pallas_conv as jax_pallas_conv
 from salt_tpu_torch.models.registry import build_model
-from salt_tpu_torch.ops import conv_kernel
+from salt_tpu_torch.ops import build, conv_kernel
 from salt_tpu_torch.ops.conv_pair import SCOPE_ENV, make_conv_fn
-from salt_tpu_torch.tools import ab_conv, conv_probe, conv_probe2
+from salt_tpu_torch.tools import (ab_conv, conv_probe, conv_probe2,
+                                  conv_valid_ab, matmul_ab)
 
 
 def test_conv_probe_on_the_cpu(capsys):
@@ -155,3 +159,23 @@ def test_tools_default_to_cuda_and_raise(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tool.main(["--iters", "1"])
+
+
+
+_AB = ((conv_valid_ab, "conv_valid.cu"), (matmul_ab, "matmul_wgmma.cu"))
+
+
+@pytest.mark.parametrize("tool,source,variant", [
+    (tool, source, v) for tool, source in _AB for v in tool.VARIANTS],
+    ids=lambda p: getattr(p, "__name__", p).split(".")[-1])
+def test_ab_variants_apply_to_the_checked_in_source(tool, source, variant,
+                                                    monkeypatch):
+    """Every A/B variant's text edits apply, each exactly once, to the
+    kernel source in the checkout and change it (``kernel`` is the source
+    as it is); the harness exits without a card."""
+    with open(os.path.join(build.CSRC_DIR, source)) as f:
+        original = f.read()
+    assert (tool.variant_source(variant) == original) == (variant == "kernel")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        tool.main(["--variants", variant])
