@@ -48,7 +48,10 @@ Phases (each raises on failure; the script then exits non-zero):
                 400 / 80 synthetic images, 1 epoch each, hflip TTA, a
                 120-image test set), then ``cli evaluate-predict-cv`` with
                 "off" on the same experiment directory: the same fold
-                scores and submission under the threshold-margin rule.
+                scores and submission under the threshold-margin rule;
+11. metadata  — a TGS-layout tree of 48 train and 16 test PNGs and
+                depths.csv through ``cli prepare-metadata``, then ``cli
+                train --epochs 1`` from the metadata.csv it wrote.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after (the probe harnesses' and the A/B's too). The script then
 prints one JSON line of kernel records and,
@@ -82,6 +85,7 @@ N_TRAIN_IMAGES = 480              # fold 0 of 6: 400 train / 80 valid
 TRAIN_EPOCHS = 2
 N_CV_IMAGES = 480                 # 6 folds of 400 train / 80 valid
 PROBE_BATCH, PROBE_SIZE = 64, 128  # the probe harnesses' B and H = W
+N_META_TRAIN, N_META_TEST = 48, 16  # the metadata phase's PNG tree
 #: flagship convs the conv kernel takes per infer forward: 6 encoder
 #: layer1, 3 of dec2, 5 hypercolumn-head branches (all 64 -> 64)
 CONV_KERNEL_PER_FORWARD = 14
@@ -183,66 +187,101 @@ def phase_build():
     log("build", kernels=len(libs), seconds=f"{seconds:.2f}")
 
 
+def _preprocess_bound(b, out_bytes):
+    """(bound s, "bytes" or "operations") of the preprocess kernel at
+    batch ``b``: each input byte read and each output byte written once;
+    /255, -mean, /std, ramp and gray * ramp per pixel in fp32."""
+    bytes_moved = b * 101 * 101 + out_bytes
+    flops = b * 128 * 128 * 6
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
 def phase_kernel(dev):
     """The preprocess kernel against its plain version: fp32 within
     atol=1e-5 and bf16 within one bf16 ulp of the plain fp32 result cast
-    to bf16, at B = 1, 5 and 48 (48 = 24 images x 2 TTA passes, the serve
-    batch). Times are at B = 48, bf16 output, as serve calls it."""
+    to bf16, at B = 1, 5, 48 (48 = 24 images x 2 TTA passes, the serve
+    batch) and 97, and on a batch of 48 that starts at an odd byte (a
+    slice of a larger one, as ``predict_dataset`` hands it on); the max
+    errors are logged, also against the plain version on the CPU, whose
+    divisions the kernel repeats (torch's CPU linspace rounds a few ramp
+    values one ulp apart from the card's). Times at B = 48, bf16 output,
+    as serve calls it (the record), and at B = 24 in both dtypes (a
+    validation batch), each beside its bound."""
     import torch
     from salt_tpu_torch.ops import preprocess_kernel as pk
     from salt_tpu_torch.ops.preprocess import preprocess_inference
     max_err = 0.0
-    for b in (1, 5, 48):
-        imgs = torch.from_numpy(seeded_images(b, seed=b)).to(dev)
-        imgs[0, 0, :7] = torch.tensor([0, 1, 127, 128, 254, 255, 3])
+    for b, offset in ((1, 0), (5, 0), (48, 0), (97, 0), (48, 1)):
+        raw = torch.from_numpy(seeded_images(b, seed=b + offset)).to(dev)
+        raw[0, 0, :7] = torch.tensor([0, 1, 127, 128, 254, 255, 3])
+        buf = torch.empty(offset + raw.numel(), dtype=torch.uint8, device=dev)
+        imgs = buf[offset:].view(raw.shape)
+        imgs.copy_(raw)
         want = preprocess_inference(imgs)
         got = pk.preprocess_inference_kernel(imgs, torch.float32)
         got16 = pk.preprocess_inference_kernel(imgs, torch.bfloat16)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         want16 = want.to(torch.bfloat16).float()
+        err16 = float((got16.float() - want16).abs().max())
         ulps = float(((got16.float() - want16).abs()
                       / (want16.abs() * 2.0 ** -7 + 1e-30)).max())
+        # on the CPU the plain version divides as the kernel does; on the
+        # card torch divides by a scalar through its reciprocal
+        cpu = preprocess_inference(imgs.cpu())
+        err_cpu = float((got.cpu() - cpu).abs().max())
+        err16_cpu = float((got16.cpu().float()
+                           - cpu.to(torch.bfloat16).float()).abs().max())
         if got.shape != (b, 128, 128, 3) or not err <= 1e-5 or ulps > 1.0:
-            raise AssertionError(f"preprocess kernel B={b}: max_abs_err "
-                                 f"{err} (fp32, atol 1e-5), {ulps} bf16 ulp")
+            raise AssertionError(f"preprocess kernel B={b} offset {offset}: "
+                                 f"max_abs_err {err} (fp32, atol 1e-5), "
+                                 f"{ulps} bf16 ulp")
         max_err = max(max_err, err)
         log("kernel", name="preprocess_inference", batch=b,
-            fp32_max_abs_err=err, bf16_max_ulp=ulps)
+            input_byte_offset=imgs.data_ptr() % 16, fp32_max_abs_err=err,
+            bf16_max_abs_err=err16, bf16_max_ulp=ulps,
+            fp32_max_abs_err_vs_cpu=err_cpu,
+            bf16_max_abs_err_vs_cpu=err16_cpu)
 
-    b = 2 * SERVE_BATCH
-    imgs = torch.from_numpy(seeded_images(b, seed=7)).to(dev)
+    record = None
+    for b, dtype in ((2 * SERVE_BATCH, torch.bfloat16),
+                     (SERVE_BATCH, torch.bfloat16),
+                     (SERVE_BATCH, torch.float32)):
+        imgs = torch.from_numpy(seeded_images(b, seed=7)).to(dev)
 
-    def kernel():
-        return pk.preprocess_inference_kernel(imgs)
+        def kernel():
+            return pk.preprocess_inference_kernel(imgs, dtype)
 
-    def plain():
-        return preprocess_inference(imgs, "edge", torch.bfloat16)
+        def plain():
+            return preprocess_inference(imgs, "edge", dtype)
 
-    # device time per call from the profiler; back-to-back CUDA events
-    # measure the host's enqueue rate for a kernel this short
-    ms = device_ms(kernel, match="preprocess_inference_kernel")
-    plain_ms = device_ms(plain)
-    enqueue_ms, plain_enqueue_ms = time_ms(kernel), time_ms(plain)
-    timed_by = "profiler"
-    if ms == 0.0 or plain_ms == 0.0:
-        ms, plain_ms, timed_by = enqueue_ms, plain_enqueue_ms, "events"
-    bytes_moved = b * (101 * 101 + 128 * 128 * 3 * 2)
-    flops = b * 128 * 128 * 6           # /255, -mean, /std, ramp, x*ramp
-    bound_s = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS)
-    bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-                else "operations")
-    log("kernel", name="preprocess_inference", batch=b, ms=f"{ms:.5f}",
-        plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_s * 1e3:.5f}",
-        bound_by=bound_by, bytes=bytes_moved, timed_by=timed_by,
-        enqueue_ms=f"{enqueue_ms:.5f}",
-        plain_enqueue_ms=f"{plain_enqueue_ms:.5f}")
-    return {"name": "preprocess_inference", "route": "cuda",
-            "source": "salt_tpu_torch/csrc/preprocess.cu",
-            "replaces": "salt_tpu/ops/pallas_preprocess.py:38",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by, "library_ms": None}
+        # device time per call from the profiler; back-to-back CUDA events
+        # measure the host's enqueue rate for a kernel this short
+        ms = device_ms(kernel, match="preprocess_inference_kernel")
+        plain_ms = device_ms(plain)
+        enqueue_ms, plain_enqueue_ms = time_ms(kernel), time_ms(plain)
+        timed_by = "profiler"
+        if ms == 0.0 or plain_ms == 0.0:
+            ms, plain_ms, timed_by = enqueue_ms, plain_enqueue_ms, "events"
+        out_bytes = b * 128 * 128 * 3 * torch.finfo(dtype).bits // 8
+        bound_s, bound_by = _preprocess_bound(b, out_bytes)
+        log("kernel", name="preprocess_inference", batch=b,
+            dtype=str(dtype).split(".")[-1], ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_s * 1e3:.5f}",
+            bound_share=f"{bound_s * 1e3 / ms:.3f}", bound_by=bound_by,
+            bytes=b * 101 * 101 + out_bytes, timed_by=timed_by,
+            enqueue_ms=f"{enqueue_ms:.5f}",
+            plain_enqueue_ms=f"{plain_enqueue_ms:.5f}")
+        if record is None:
+            record = {"name": "preprocess_inference", "route": "cuda",
+                      "source": "salt_tpu_torch/csrc/preprocess.cu",
+                      "replaces": "salt_tpu/ops/pallas_preprocess.py:38",
+                      "launches": None, "max_abs_err": max_err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                      "bound_by": bound_by, "library_ms": None}
+    return record
 
 
 def phase_model(dev):
@@ -1538,6 +1577,77 @@ def phase_cv(card, n_folds=6):
     return on["counts"], off["counts"]
 
 
+def phase_metadata(card):
+    """The real-data path from a TGS-layout tree, as a user runs it: the
+    port's ``write_synthetic_dataset`` writes N_META_TRAIN train (image,
+    mask) and N_META_TEST test PNGs and depths.csv; ``cli
+    prepare-metadata`` writes metadata.csv (its column contract checked);
+    ``cli train --epochs 1`` trains the flagship (bf16, batch 24) from
+    that CSV on the card, fold 0 of 6. The sort kernel launches once per
+    train step and validation-loss batch, the preprocess kernel once per
+    validation predict and validation-loss batch."""
+    import pandas as pd
+    import torch
+    from salt_tpu_torch import cli
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.data.metadata import COLUMNS
+    from salt_tpu_torch.data.synthetic import write_synthetic_dataset
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops import sort_kernel as sk
+
+    n_valid = math.ceil(N_META_TRAIN / default_config().execution.n_cv_splits)
+    steps = (N_META_TRAIN - n_valid) // TRAIN_BATCH
+    val_batches = math.ceil(n_valid / SERVE_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, test_dir, depths = write_synthetic_dataset(
+            tmp, n_train=N_META_TRAIN, n_test=N_META_TEST, seed=5)
+        csv = os.path.join(tmp, "metadata.csv")
+        exp = os.path.join(tmp, "exp")
+        paths = ["--set", f"paths.train_images_dir={train_dir}",
+                 "--set", f"paths.test_images_dir={test_dir}",
+                 "--set", f"paths.depths_filepath={depths}",
+                 "--set", f"paths.metadata_filepath={csv}",
+                 "--set", f"paths.experiment_dir={exp}"]
+        t0 = time.perf_counter()
+        rc = cli.main(["prepare-metadata", *paths])
+        meta_s = time.perf_counter() - t0
+        meta = pd.read_csv(csv)
+        train = meta[meta["is_train"] == 1]
+        if (rc != 0 or list(meta.columns) != COLUMNS
+                or len(train) != N_META_TRAIN
+                or len(meta) != N_META_TRAIN + N_META_TEST
+                or train["size"].isna().any()
+                or not meta[meta["is_train"] == 0]["size"].isna().all()):
+            raise AssertionError(f"prepare-metadata: rc {rc}, columns "
+                                 f"{list(meta.columns)}, {len(meta)} rows")
+        pk.launches = sk.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--epochs", "1", *paths,
+                       "--set", f"training.batch_size_train={TRAIN_BATCH}",
+                       "--set",
+                       f"training.batch_size_inference={SERVE_BATCH}"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = dict(preprocess=pk.launches, sort=sk.launches)
+        want = dict(preprocess=2 * val_batches, sort=steps + val_batches)
+        best = os.path.join(exp, "checkpoints", "network", "best.npz")
+        if rc != 0 or counts != want or not os.path.exists(best):
+            raise AssertionError(f"train from metadata.csv: rc {rc}, kernel "
+                                 f"launches {counts}, expected {want}, "
+                                 f"best.npz {os.path.exists(best)}")
+        with open(os.path.join(exp, "channels_network.jsonl")) as f:
+            epoch = json.loads(f.readline())
+    if not math.isfinite(epoch["train_loss"]):
+        raise AssertionError(f"train from metadata.csv: {epoch}")
+    log("metadata", rows=len(meta), train=N_META_TRAIN, test=N_META_TEST,
+        empty_masks=int((train["size"] == 0).sum()),
+        prepare_s=f"{meta_s:.3f}", train_s=f"{train_s:.3f}",
+        train_loss=f"{epoch['train_loss']:.5f}",
+        preprocess_launches=counts["preprocess"],
+        sort_launches=counts["sort"], card=repr(card))
+    return counts
+
+
 def main():
     try:
         import torch
@@ -1575,16 +1685,20 @@ def main():
     train_sort, train_preprocess = phase_train(dev, smi)
     phase_train_profile(dev, smi)
     cv_on, cv_off = phase_cv(smi)
+    meta = phase_metadata(smi)
     preprocess["launches"] = (serve_preprocess + train_preprocess
-                              + cv_on["preprocess"] + cv_off["preprocess"])
-    sort["launches"] = train_sort + cv_on["sort"]
+                              + cv_on["preprocess"] + cv_off["preprocess"]
+                              + meta["preprocess"])
+    sort["launches"] = train_sort + cv_on["sort"] + meta["sort"]
     conv["launches"] = serve_conv + cv_on["conv"] + ab_launches
     for key, count in probe_launches.items():
         probes[key]["launches"] = count
     log("launches", preprocess_serve=serve_preprocess,
         preprocess_train=train_preprocess,
         preprocess_cv=cv_on["preprocess"] + cv_off["preprocess"],
-        sort_train=train_sort, sort_cv=cv_on["sort"], conv_serve=serve_conv,
+        preprocess_metadata=meta["preprocess"], sort_train=train_sort,
+        sort_cv=cv_on["sort"], sort_metadata=meta["sort"],
+        conv_serve=serve_conv,
         conv_cv=cv_on["conv"], conv_ab=ab_launches, **probe_launches)
     print(json.dumps({"kernels": [
         preprocess, sort, conv, probes["conv128"], probes["conv64p"],

@@ -1,7 +1,10 @@
-"""Command line of the port (the ``train``, ``evaluate``, ``predict``,
-CV and ``serve`` commands of ``salt_tpu/cli.py``).
+"""Command line of the port (the ``prepare-metadata``, ``train``,
+``evaluate``, ``predict``, CV and ``serve`` commands of
+``salt_tpu/cli.py``).
 
 Usage:
+    python -m salt_tpu_torch.cli prepare-metadata [--config cfg.yaml] \
+        [--set paths.field=v]
     python -m salt_tpu_torch.cli train [--synthetic N] \
         [--synthetic-difficulty easy|hard|real] [--epochs E] [--resume] \
         [--dev-mode] [--config cfg.yaml] [--set section.field=v] \
@@ -14,13 +17,17 @@ Usage:
         [--probs-out probs.npz] [--config cfg.yaml] [--set section.field=v] \
         [--device cuda|cpu]
 
-``train`` fits the configured network on the first fold of the data
+``prepare-metadata`` scans ``paths.train_images_dir`` (``images/``,
+``masks/``), ``paths.test_images_dir`` (``images/``) and
+``paths.depths_filepath`` and writes ``paths.metadata_filepath``, the CSV
+the other commands read; it touches no device. ``train`` fits the
+configured network on the first fold of the data
 (``paths.metadata_filepath``, or N generated images with ``--synthetic``
 and a test set of max(N // 4, 8) images without masks, seed + 1) into
 ``paths.experiment_dir``; the CV commands train and/or evaluate every
 fold there, and the ``predict`` ones write ``submission.csv``. Every
-command runs on the CUDA card by default and fails where there is none,
-unless ``--device cpu`` is given.
+other command runs on the CUDA card by default and fails where there is
+none, unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -52,9 +59,9 @@ def _parse_overrides(items):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="salt_tpu_torch")
     parser.add_argument("command", choices=[
-        "train", "evaluate", "predict", "train-evaluate-cv",
-        "train-evaluate-predict-cv", "evaluate-cv", "evaluate-predict-cv",
-        "serve"])
+        "prepare-metadata", "train", "evaluate", "predict",
+        "train-evaluate-cv", "train-evaluate-predict-cv", "evaluate-cv",
+        "evaluate-predict-cv", "serve"])
     parser.add_argument("--config", default=None,
                         help="YAML config (native nested or reference-style "
                              "'parameters:' layout); falls back to "
@@ -92,6 +99,14 @@ def main(argv=None):
     init_logger()
     overrides = _parse_overrides(args.set)
     cfg = load_config(args.config, overrides)
+    if args.command == "prepare-metadata":
+        from salt_tpu_torch.data.metadata import generate_metadata
+        meta = generate_metadata(cfg.paths.train_images_dir,
+                                 cfg.paths.test_images_dir,
+                                 cfg.paths.depths_filepath)
+        meta.to_csv(cfg.paths.metadata_filepath, index=None)
+        print(f"metadata saved to {cfg.paths.metadata_filepath}")
+        return 0
     if args.command != "serve":
         return _run(cfg, args)
     from salt_tpu_torch.pipeline.serving import serve

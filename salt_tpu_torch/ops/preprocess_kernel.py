@@ -7,7 +7,10 @@ edge-pad 101 -> 128 production geometry only.
 - A tensor on the CPU takes the plain version,
   ``ops.preprocess.preprocess_inference(pad_method="edge")``.
 - A CUDA tensor launches the kernel on the current stream or raises:
-  there is no fallback. It must be a contiguous uint8 [B, 101, 101].
+  there is no fallback. It must be a contiguous uint8 [B, 101, 101]; it
+  may start at any byte (a slice of a larger batch). The kernel writes
+  the output in 16-byte stores, so the output must be 16-byte aligned,
+  which ``torch.empty`` guarantees.
 - ``launches`` counts kernel launches, and nothing else.
 
 The result is NHWC; ``.permute(0, 3, 1, 2)`` gives the [B, 3, 128, 128]
@@ -61,6 +64,8 @@ def preprocess_inference_kernel(images_u8: torch.Tensor,
                       device=images_u8.device)
     if b == 0:
         return out
+    if out.data_ptr() % 16:
+        raise RuntimeError("preprocess kernel: output not 16-byte aligned")
     fn = build.function("preprocess", "salt_preprocess_inference", _ARGTYPES)
     with torch.cuda.device(images_u8.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,6 +1,8 @@
 """Tests that need the card: the preprocess, bitonic sort and 3x3 conv
 CUDA kernels and the conv and matmul probe kernels against their plain
-versions, their launch counts and input checks, a small serve step on the
+versions (the preprocess kernel also at B 0, on extreme edge bytes, on an
+unaligned input and on a side stream), their launch counts and input
+checks, a small serve step on the
 card against the CPU, a predict step through the conv kernel, and one
 bf16 train step.
 Marked ``cuda``; they skip where CUDA is absent and run on the card with
@@ -26,24 +28,102 @@ def _images(b, seed=0):
         (np.random.RandomState(seed).rand(b, 101, 101) * 255).astype(np.uint8))
 
 
-@pytest.mark.parametrize("b", [1, 5, 48])
+def _check_preprocess(imgs, got, got16):
+    """fp32 within atol=1e-5 of the plain version; bf16 within one bf16
+    ulp of the plain fp32 result cast to bf16."""
+    from salt_tpu_torch.ops.preprocess import preprocess_inference
+    want = preprocess_inference(imgs)
+    assert got.shape == (imgs.shape[0], 128, 128, 3)
+    assert got.dtype == torch.float32 and got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    want16 = want.to(torch.bfloat16).float()
+    ulp = torch.abs(want16) * 2.0 ** -7 + 1e-30
+    assert bool((torch.abs(got16.float() - want16) <= ulp).all())
+
+
+@pytest.mark.parametrize("b", [1, 5, 48, 97, 384])
 def test_kernel_matches_plain_version(cuda, b):
     """fp32 within atol=1e-5 of the plain version; bf16 within one bf16
     ulp of the plain fp32 result cast to bf16."""
     from salt_tpu_torch.ops import preprocess_kernel as pk
-    from salt_tpu_torch.ops.preprocess import preprocess_inference
     imgs = _images(b, seed=b).to(cuda)
-    want = preprocess_inference(imgs)
     before = pk.launches
     got = pk.preprocess_inference_kernel(imgs, torch.float32)
     got16 = pk.preprocess_inference_kernel(imgs, torch.bfloat16)
     torch.cuda.synchronize()
     assert pk.launches == before + 2
-    assert got.shape == (b, 128, 128, 3) and got.dtype == torch.float32
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
-    want16 = want.to(torch.bfloat16).float()
-    ulp = torch.abs(want16) * 2.0 ** -7 + 1e-30
-    assert bool((torch.abs(got16.float() - want16) <= ulp).all())
+    _check_preprocess(imgs, got, got16)
+
+
+def test_kernel_empty_batch(cuda):
+    """B 0: the plain version's empty result, in both dtypes, and no
+    launch."""
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops.preprocess import preprocess_inference
+    imgs = _images(0).to(cuda)
+    before = pk.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        got = pk.preprocess_inference_kernel(imgs, dtype)
+        want = preprocess_inference(imgs, "edge", dtype)
+        assert got.shape == want.shape == (0, 128, 128, 3)
+        assert got.dtype == want.dtype == dtype
+    assert pk.launches == before
+
+
+def test_kernel_edge_pad_copies_extreme_bytes(cuda):
+    """Bytes 0 / 1 / 127 / 128 / 254 / 255 in the four corners and along
+    the four edges, which the edge pad copies out to the border."""
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    imgs = _images(4, seed=11)
+    values = torch.tensor([0, 1, 127, 128, 254, 255], dtype=torch.uint8)
+    edge = values.repeat(17)[:101]
+    for i in range(4):
+        e = edge.roll(i)
+        imgs[i, 0], imgs[i, -1], imgs[i, :, 0], imgs[i, :, -1] = e, e, e, e
+        imgs[i, 0, 0], imgs[i, 0, -1] = values[i], values[i + 1]
+        imgs[i, -1, 0], imgs[i, -1, -1] = values[i + 2], values[5 - i]
+    imgs = imgs.to(cuda)
+    got = pk.preprocess_inference_kernel(imgs, torch.float32)
+    got16 = pk.preprocess_inference_kernel(imgs, torch.bfloat16)
+    torch.cuda.synchronize()
+    _check_preprocess(imgs, got, got16)
+
+
+@pytest.mark.parametrize("offset", ["slice", "one_byte"])
+def test_kernel_reads_an_input_at_an_odd_byte(cuda, offset):
+    """``buf[1:]`` of a contiguous [B + 1, 101, 101] batch (10,201 bytes
+    in, as ``predict_dataset`` slices a batch) and a batch one byte into
+    a flat buffer: both contiguous, neither aligned."""
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    b = 7
+    if offset == "slice":
+        imgs = _images(b + 1, seed=12).to(cuda)[1:]
+    else:
+        buf = torch.empty(b * 101 * 101 + 1, dtype=torch.uint8, device=cuda)
+        imgs = buf[1:].view(b, 101, 101)
+        imgs.copy_(_images(b, seed=13))
+    assert imgs.is_contiguous() and imgs.data_ptr() % 2 == 1
+    got = pk.preprocess_inference_kernel(imgs, torch.float32)
+    got16 = pk.preprocess_inference_kernel(imgs, torch.bfloat16)
+    torch.cuda.synchronize()
+    _check_preprocess(imgs, got, got16)
+
+
+def test_kernel_launches_on_the_current_stream(cuda):
+    """On a side stream whose input is written there after a long sleep:
+    a launch on any other stream would read the zeros that were there."""
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    src = _images(48, seed=14).to(cuda)
+    imgs = torch.zeros_like(src)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        imgs.copy_(src)
+        got = pk.preprocess_inference_kernel(imgs, torch.float32)
+        got16 = pk.preprocess_inference_kernel(imgs, torch.bfloat16)
+    side.synchronize()
+    _check_preprocess(src, got, got16)
 
 
 def test_kernel_refuses_bad_inputs(cuda):

@@ -1,5 +1,6 @@
 """The port's probe harnesses (``salt_tpu_torch.tools``) on the CPU at a
-tiny size, the kernel A/B harnesses' source variants, and the conv
+tiny size, the kernel A/B harnesses' source variants (text edits, or
+``-D`` switches for the preprocess kernel), and the conv
 dispatch's A/B scope (``ops.conv_pair.make_conv_fn(scope)``) against the
 JAX dispatch's ``SALT_TPU_PALLAS_CONV_SCOPE``."""
 import os
@@ -19,7 +20,7 @@ from salt_tpu_torch.models.registry import build_model
 from salt_tpu_torch.ops import build, conv_kernel
 from salt_tpu_torch.ops.conv_pair import SCOPE_ENV, make_conv_fn
 from salt_tpu_torch.tools import (ab_conv, conv_probe, conv_probe2,
-                                  conv_valid_ab, matmul_ab)
+                                  conv_valid_ab, matmul_ab, preprocess_ab)
 
 
 def test_conv_probe_on_the_cpu(capsys):
@@ -179,3 +180,29 @@ def test_ab_variants_apply_to_the_checked_in_source(tool, source, variant,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA card"):
         tool.main(["--variants", variant])
+
+
+@pytest.mark.parametrize("variant", list(preprocess_ab.VARIANTS))
+def test_preprocess_ab_switches_are_declared_by_the_source(variant,
+                                                           monkeypatch):
+    """Every preprocess A/B variant's ``-D`` switches are ones that
+    ``csrc/preprocess.cu`` declares with a default (``kernel`` sets none);
+    the harness exits without a card."""
+    with open(os.path.join(build.CSRC_DIR, "preprocess.cu")) as f:
+        src = f.read()
+    switches = preprocess_ab.VARIANTS[variant][0]
+    flags = preprocess_ab.variant_flags(variant)
+    assert flags == [f"-D{k}={v}" for k, v in switches.items()]
+    assert bool(flags) == (variant != "kernel")
+    for macro in switches:
+        assert f"#ifndef {macro}\n#define {macro} " in src
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        preprocess_ab.main(["--variants", variant])
+
+
+def test_preprocess_ab_refuses_an_undeclared_switch(monkeypatch):
+    monkeypatch.setitem(preprocess_ab.VARIANTS, "gone",
+                        ({"SALT_PRE_GONE": 1}, True))
+    with pytest.raises(RuntimeError, match="SALT_PRE_GONE"):
+        preprocess_ab.variant_flags("gone")
