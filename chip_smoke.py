@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the flagship
 UNetResNet34 at full width, end to end, on its paths — hflip-TTA
-``serve``, ``train`` and the K-fold CV loop (``train-evaluate-predict-cv``
-/ ``evaluate-predict-cv``).
+``serve`` (from checkpoints and ``--synthetic``), ``train`` and the
+K-fold CV loop (``train-evaluate-predict-cv`` / ``evaluate-predict-cv``)
+— the scratch SaltUNet's train, resume and serve, the other losses, and
+the port's bench.
 
     python3 chip_smoke.py
 
@@ -51,7 +53,21 @@ Phases (each raises on failure; the script then exits non-zero):
                 scores and submission under the threshold-margin rule;
 11. metadata  — a TGS-layout tree of 48 train and 16 test PNGs and
                 depths.csv through ``cli prepare-metadata``, then ``cli
-                train --epochs 1`` from the metadata.csv it wrote.
+                train --epochs 1`` from the metadata.csv it wrote;
+12. serve_synthetic — ``serve --synthetic 2048`` with no checkpoint (the
+                runner's seeded weights), the flagship at batch 64;
+13. salt_unet — SaltUNet (16 filters, 4 levels) through ``cli train``
+                (480 synthetic images, 2 epochs, Lovász, the validation
+                image monitor), ``--resume`` for a third epoch and ``cli
+                serve --synthetic`` from its experiment directory; its
+                forward fp32 against the CPU and bf16 against fp32;
+14. losses    — dice, the mixed dice losses and the focal losses, value
+                and gradient, on the card against the CPU;
+15. bench     — ``python -m salt_tpu_torch.tools.bench`` at reduced
+                windows (it prints its JSON line).
+Device times come from whole profiler sessions (``tools/profiling.py``:
+the profiler loses events), and a kernel's or a library call's time
+under its bound fails the run.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after (the probe harnesses' and the A/B's too). The script then
 prints one JSON line of kernel records and,
@@ -86,6 +102,8 @@ TRAIN_EPOCHS = 2
 N_CV_IMAGES = 480                 # 6 folds of 400 train / 80 valid
 PROBE_BATCH, PROBE_SIZE = 64, 128  # the probe harnesses' B and H = W
 N_META_TRAIN, N_META_TEST = 48, 16  # the metadata phase's PNG tree
+BENCH_BATCH = 64                  # bench.py's inference batch
+SALT_UNET_FILTERS, SALT_UNET_LEVELS = 16, 4   # bench.py's salt_unet16
 #: flagship convs the conv kernel takes per infer forward: 6 encoder
 #: layer1, 3 of dec2, 5 hypercolumn-head branches (all 64 -> 64)
 CONV_KERNEL_PER_FORWARD = 14
@@ -114,43 +132,28 @@ def time_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(end) / iters
 
 
-def _self_device_us(event):
-    """A profiler row's own device time in us; 0 for host-side rows (an
-    aten op row repeats the time of the kernels it launched) and for
-    annotation ranges on the device's timeline (``Optimizer.step#...``
-    spans the kernels it launched, which have rows of their own)."""
-    import torch
-    if (event.device_type != torch.autograd.DeviceType.CUDA
-            or getattr(event, "is_user_annotation", False)):
-        return 0.0
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, attr):
-            return float(getattr(event, attr))
-    return 0.0
-
-
 def device_ms(fn, match="", iters=50, launches_per_call=1):
-    """Device time per call of ``fn`` from ``torch.profiler``: with
-    ``match``, the time of the kernels whose name contains it over the
-    calls they make, their recorded launches over ``launches_per_call``
-    (dividing by the launches the profiler recorded, not by ``iters``,
-    keeps a run whose trace dropped events right); without, all CUDA
-    kernels' own time over ``iters`` calls. 0.0 when the profiler records
-    no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if match in e.key and _self_device_us(e) > 0]
-    calls = (sum(e.count for e in rows) / launches_per_call if match
-             else iters)
-    return sum(_self_device_us(e) for e in rows) / max(calls, 1) / 1e3
+    """Device time per call of ``fn`` from a whole ``torch.profiler``
+    session (``tools/profiling.kernel_ms``: the profiler loses events, so
+    each kernel name's mean duration counts times its launches per call,
+    from a session that holds the expected launches a call and at least
+    90% of their events): with ``match``, the time of the kernels whose
+    name contains it, which must number ``launches_per_call`` a call;
+    without, every device event's. 0.0 when the profiler records no
+    device time."""
+    from salt_tpu_torch.tools.profiling import kernel_ms
+    return kernel_ms(fn, match, iters, launches_per_call if match else None)
+
+
+def check_bound(what, bound_ms, **times):
+    """Raise when a time of ``times`` (ms; None for an absent library
+    call) is under ``bound_ms``, the least time the card could take for
+    the work: such a reading is a fault of the measurement."""
+    under = {k: v for k, v in times.items()
+             if v is not None and v < bound_ms}
+    if under:
+        raise AssertionError(f"{what}: {under} under the {bound_ms:.5f} ms "
+                             "bound")
 
 
 def seeded_images(n, seed):
@@ -267,6 +270,8 @@ def phase_kernel(dev):
             ms, plain_ms, timed_by = enqueue_ms, plain_enqueue_ms, "events"
         out_bytes = b * 128 * 128 * 3 * torch.finfo(dtype).bits // 8
         bound_s, bound_by = _preprocess_bound(b, out_bytes)
+        check_bound(f"preprocess kernel B={b} {dtype}", bound_s * 1e3,
+                    ms=ms, plain_ms=plain_ms)
         log("kernel", name="preprocess_inference", batch=b,
             dtype=str(dtype).split(".")[-1], ms=f"{ms:.5f}",
             plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_s * 1e3:.5f}",
@@ -366,10 +371,12 @@ def phase_profile(dev, card, pallas_conv="off", steps=5, top=12):
     repack's (together the route's cost), the library convs' device time,
     and the kernels that take the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from salt_tpu_torch.core.config import default_config
     from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.tools.profiling import (name_readings,
+                                                session_reading,
+                                                whole_sessions)
     from salt_tpu_torch.train.steps import SegmentationRunner
     cfg = default_config()
     cfg.model.pallas_conv = pallas_conv
@@ -387,22 +394,19 @@ def phase_profile(dev, card, pallas_conv="off", steps=5, top=12):
         runner.predict_tta_step(model, imgs)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            runner.predict_tta_step(model, imgs)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
-    device_ms_step = sum(_self_device_us(e) for e in events) / steps / 1e3
-    kernel = [e for e in events if "conv3x3_pair_kernel" in e.key]
-    kernel_ms = sum(_self_device_us(e) for e in kernel) / steps / 1e3
+    prof, reading = next(whole_sessions(
+        lambda i: runner.predict_tta_step(model, imgs), steps, cpu=True))
+    device_ms_step = reading["ms"]
+    per_name = name_readings(prof.events(), steps)
+    kernel = session_reading(prof.events(), steps, "conv3x3_pair_kernel")
+    kernel_ms = kernel["ms"]
     # the weight repack before each launch: the device time of the kernels
     # launched inside its host-side profiler range
     repack = [e for e in prof.events() if e.name == ck.REPACK_RANGE
               and e.device_type == torch.autograd.DeviceType.CPU]
     repack_ms = sum(e.device_time_total for e in repack) / steps / 1e3
-    library_ms = sum(_self_device_us(e) for e in events
-                     if _is_library_conv(e.key)) / steps / 1e3
+    library_ms = sum(r["ms"] for name, r in per_name.items()
+                     if _is_library_conv(name))
     log("profile", step="predict_tta_step", pallas_conv=pallas_conv,
         images=SERVE_BATCH, dtype=cfg.training.dtype,
         wall_ms=f"{wall_ms:.3f}", device_ms=f"{device_ms_step:.3f}",
@@ -410,18 +414,17 @@ def phase_profile(dev, card, pallas_conv="off", steps=5, top=12):
         tflops_on_wall=f"{gflop / wall_ms:.1f}",
         tflops_on_device=f"{gflop / device_ms_step:.1f}",
         conv_kernel_ms=f"{kernel_ms:.3f}",
-        conv_kernel_calls=sum(e.count for e in kernel) // steps,
+        conv_kernel_calls=kernel["launches_per_call"],
         conv_kernel_share=f"{kernel_ms / device_ms_step:.3f}",
         repack_ms=f"{repack_ms:.4f}", repack_calls=len(repack) // steps,
         route_ms=f"{kernel_ms + repack_ms:.3f}",
         library_conv_ms=f"{library_ms:.3f}",
         library_conv_share=f"{library_ms / device_ms_step:.3f}",
         card=repr(card))
-    events.sort(key=_self_device_us, reverse=True)
-    for e in events[:top]:
-        log("profile", pallas_conv=pallas_conv, kernel=repr(e.key[:90]),
-            calls_per_step=e.count // steps,
-            device_ms_per_step=f"{_self_device_us(e) / steps / 1e3:.3f}")
+    for name, r in list(per_name.items())[:top]:
+        log("profile", pallas_conv=pallas_conv, kernel=repr(name[:90]),
+            calls_per_step=r["launches_per_call"],
+            device_ms_per_step=f"{r['ms']:.3f}")
 
 
 def _csv_masks(path, h=101, w=101):
@@ -732,6 +735,8 @@ def _time_sort(dev, rows):
     bound_s = max(bytes_moved / HBM_BYTES_PER_S, compare_exchanges / FP32_FLOPS)
     bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S
                 >= compare_exchanges / FP32_FLOPS else "operations")
+    check_bound(f"sort [{rows}, {SORT_LENGTH}]", bound_s * 1e3, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms)
     log("kernel", name="bitonic_sort_desc", rows=rows, length=SORT_LENGTH,
         chunk=1 << plan[0].log_chunk, ms=f"{ms:.5f}",
         plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
@@ -857,6 +862,8 @@ def phase_conv_kernel(dev):
                                         events["library_ms"])
             timed_by = "events"
         bound_ms, bound_by, flops, nbytes = conv_bound(shape, halo)
+        check_bound(f"conv kernel {name}", bound_ms, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms)
         log("conv_kernel", shape=name, x=list(shape), ms=f"{ms:.5f}",
             plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
             bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, flops=flops,
@@ -1071,6 +1078,8 @@ def phase_probe_kernels(dev, card):
         t = _timed(kernel, match, plain, library)
         bound_ms, bound_by = gemm_bound(nbytes, ops, ops_rate)
         lib = t["library_ms"]
+        check_bound(f"{key} {variant}", bound_ms, ms=t["ms"],
+                    plain_ms=t["plain_ms"], library_ms=lib)
         log("probe_kernel", name=key, variant=variant, ms=f"{t['ms']:.5f}",
             plain_ms=f"{t['plain_ms']:.5f}",
             library_ms=f"{lib:.5f}" if lib is not None else None,
@@ -1099,6 +1108,7 @@ def phase_probe_kernels(dev, card):
     # the int8 call's K-major weight copy (98 KB), outside its kernel time
     copy_ms = device_ms(lambda: kmajor_weights(wq3), iters=20)
     copy_bound = 2 * wq3.numel() / HBM_BYTES_PER_S * 1e3
+    check_bound("int8 weight copy", copy_bound, ms=copy_ms)
     log("probe_kernel", name="conv64p_v2_int8 weight copy",
         variant="kmajor_weights [768,128] -> [128,768] int8",
         ms=f"{copy_ms:.5f}", bound_ms=f"{copy_bound:.5f}", bound_by="bytes",
@@ -1408,10 +1418,12 @@ def phase_train_profile(dev, card, steps=5, top=14):
     kernels, and the sort's share of device time, every launch of its
     plan counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from salt_tpu_torch.core.config import default_config
     from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.tools.profiling import (name_readings,
+                                                session_reading,
+                                                whole_sessions)
     from salt_tpu_torch.train.steps import SegmentationRunner
     cfg = default_config()
     runner = SegmentationRunner(cfg, dev)
@@ -1434,15 +1446,11 @@ def phase_train_profile(dev, card, steps=5, top=14):
     for i in range(steps):
         float(step(i))             # the loop reads each loss, as fit does
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            float(step(i))
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
-    device_ms_step = sum(_self_device_us(e) for e in events) / steps / 1e3
-    sort_events = [e for e in events if sk.KERNEL_PREFIX in e.key]
-    sort_ms = sum(_self_device_us(e) for e in sort_events) / steps / 1e3
+    prof, reading = next(whole_sessions(lambda i: float(step(i)), steps,
+                                        cpu=True))
+    device_ms_step = reading["ms"]
+    sort = session_reading(prof.events(), steps, sk.KERNEL_PREFIX)
+    sort_ms = sort["ms"]
     log("train_profile", step="train_step", images=TRAIN_BATCH,
         dtype=cfg.training.dtype, wall_ms=f"{wall_ms:.3f}",
         device_ms=f"{device_ms_step:.3f}",
@@ -1451,13 +1459,12 @@ def phase_train_profile(dev, card, steps=5, top=14):
         tflops_on_device=f"{gflop / device_ms_step:.1f}",
         sort_kernel_ms=f"{sort_ms:.4f}",
         sort_kernel_share=f"{sort_ms / device_ms_step:.4f}",
-        sort_device_launches_per_step=sum(e.count for e in sort_events)
-        // steps, card=repr(card))
-    events.sort(key=_self_device_us, reverse=True)
-    for e in events[:top]:
-        log("train_profile", kernel=repr(e.key[:90]),
-            calls_per_step=e.count // steps,
-            device_ms_per_step=f"{_self_device_us(e) / steps / 1e3:.3f}")
+        sort_device_launches_per_step=sort["launches_per_call"],
+        card=repr(card))
+    for name, r in list(name_readings(prof.events(), steps).items())[:top]:
+        log("train_profile", kernel=repr(name[:90]),
+            calls_per_step=r["launches_per_call"],
+            device_ms_per_step=f"{r['ms']:.3f}")
     # the host side: the ops whose own CPU time is largest (the profiler
     # adds its own cost to each, so these rank, they do not time)
     host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
@@ -1648,6 +1655,246 @@ def phase_metadata(card):
     return counts
 
 
+def phase_serve_synthetic(dev, card):
+    """``serve --synthetic`` as bench.py measures serve: the flagship
+    (bf16, hflip TTA, batch BENCH_BATCH) with no checkpoint, so the
+    runner's seeded initial weights, over N_SERVE_IMAGES generated images
+    held in memory. The preprocess kernel launches once per forward batch
+    (timed and warm-up); the submission holds every generated id."""
+    import numpy as np
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.pipeline.serving import serve
+
+    cfg = default_config()
+    cfg.training.batch_size_inference = BENCH_BATCH
+    cfg.postpro.use_tta = True
+    with tempfile.TemporaryDirectory() as tmp:
+        out_csv = os.path.join(tmp, "submission.csv")
+        pk.launches = 0
+        t0 = time.perf_counter()
+        result = serve(cfg, "", "", out_csv, synthetic=N_SERVE_IMAGES,
+                       device=dev)
+        wall = time.perf_counter() - t0
+        launches = pk.launches
+        ids, masks = _csv_masks(out_csv)
+    want_ids = synthetic_bundle(N_SERVE_IMAGES, seed=cfg.execution.seed,
+                                with_masks=False).meta["id"].tolist()
+    if ids != want_ids or masks.shape != (N_SERVE_IMAGES, 101, 101):
+        raise AssertionError("serve --synthetic: ids or masks")
+    n_batches = math.ceil(N_SERVE_IMAGES / BENCH_BATCH)
+    if result["batches"] != n_batches:
+        raise AssertionError(f"serve --synthetic ran {result['batches']} "
+                             f"batches, expected {n_batches}")
+    if launches != result["batches"] + result["warmup_batches"]:
+        raise AssertionError(
+            f"preprocess kernel launched {launches} times for "
+            f"{result['batches']} + {result['warmup_batches']} warm-up "
+            "batches")
+    log("serve_synthetic", images=N_SERVE_IMAGES, batch=BENCH_BATCH,
+        tta="hflip", dtype=cfg.training.dtype, weights="seeded (init_state)",
+        images_per_s=result["images_per_sec"],
+        timed_s=f"{result['seconds']:.3f}", wall_s=f"{wall:.3f}",
+        batches=result["batches"], warmup_batches=result["warmup_batches"],
+        preprocess_launches=launches,
+        salt_fraction=f"{float(np.mean(masks)):.4f}", card=repr(card))
+    return launches
+
+
+def phase_salt_unet(dev, card):
+    """SaltUNet (16 filters, 4 levels) through the command line at the
+    train path's sizes: ``train --synthetic N_TRAIN_IMAGES --epochs 2``
+    (bf16, batch 24, Lovász, the validation image monitor every epoch),
+    ``--resume`` for a third epoch, ``serve --synthetic`` from its
+    experiment directory. The sort kernel launches once per train step
+    and validation-loss batch, the preprocess kernel once per validation
+    predict and validation-loss batch, once per monitor grid and once per
+    served batch. Then the trained weights' forward: fp32 on the card
+    against the CPU at rtol=atol=2e-3 and bf16 against fp32 on the card
+    by the model phase's rule."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from salt_tpu_torch import cli
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.core.experiment import load_flat_npz
+    from salt_tpu_torch.models.convert import load_flax_flat
+    from salt_tpu_torch.models.registry import build_model
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.ops.preprocess import preprocess_inference
+
+    cfg = default_config()
+    n_valid = math.ceil(N_TRAIN_IMAGES / cfg.execution.n_cv_splits)
+    steps = (N_TRAIN_IMAGES - n_valid) // TRAIN_BATCH
+    val_batches = math.ceil(n_valid / cfg.training.batch_size_inference)
+    monitor_batches = math.ceil(cfg.training.validation_image_nr
+                                / cfg.training.batch_size_inference)
+    counts = dict(preprocess=0, sort=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp")
+        flags = ["--synthetic", str(N_TRAIN_IMAGES),
+                 "--set", f"paths.experiment_dir={exp}",
+                 "--set", "model.architecture=SaltUNet",
+                 "--set", f"model.n_filters={SALT_UNET_FILTERS}",
+                 "--set", f"model.repeat_blocks={SALT_UNET_LEVELS}",
+                 "--set", "training.loss=lovasz",
+                 "--set", "training.validation_images_every=1"]
+        for epochs, resume in ((TRAIN_EPOCHS, []),
+                               (TRAIN_EPOCHS + 1, ["--resume"])):
+            pk.launches = sk.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["train", *flags, "--epochs", str(epochs),
+                           *resume])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = epochs - (TRAIN_EPOCHS if resume else 0)
+            got = dict(preprocess=pk.launches, sort=sk.launches)
+            want = dict(preprocess=ran * (2 * val_batches + monitor_batches),
+                        sort=ran * (steps + val_batches))
+            if rc != 0 or got != want:
+                raise AssertionError(f"SaltUNet train {resume}: rc {rc}, "
+                                     f"kernel launches {got}, expected {want}")
+            for key in counts:
+                counts[key] += got[key]
+            with open(os.path.join(exp, "channels_network.jsonl")) as f:
+                epoch_log = [json.loads(line) for line in f]
+            pngs = sorted(os.listdir(os.path.join(
+                exp, "validation_images_network")))
+            log("salt_unet", command="train" + (" --resume" if resume
+                                                else ""),
+                epochs_run=ran, wall_s=f"{wall:.3f}",
+                sort_launches=got["sort"],
+                preprocess_launches=got["preprocess"],
+                train_loss=[round(e["train_loss"], 5) for e in epoch_log],
+                val_iout=[round(e["iout"], 5) for e in epoch_log],
+                pngs=len(pngs), card=repr(card))
+        if ([e["epoch"] for e in epoch_log] != list(range(TRAIN_EPOCHS + 1))
+                or not all(math.isfinite(e["train_loss"]) for e in epoch_log)
+                or pngs != [f"validation_epoch_{i:04d}.png"
+                            for i in range(TRAIN_EPOCHS + 1)]):
+            raise AssertionError(f"SaltUNet epochs {epoch_log}, PNGs {pngs}")
+        grid = np.asarray(Image.open(os.path.join(
+            exp, "validation_images_network", pngs[-1])))
+        if grid.shape != (cfg.training.validation_image_nr * 101, 3 * 101):
+            raise AssertionError(f"monitor grid {grid.shape}")
+
+        out_csv = os.path.join(tmp, "submission.csv")
+        n_serve = 512
+        pk.launches = 0
+        rc = cli.main(["serve", "--checkpoint", exp, "--synthetic",
+                       str(n_serve), "--out", out_csv])
+        served = pk.launches
+        batches = math.ceil(n_serve / cfg.training.batch_size_inference)
+        ids, _ = _csv_masks(out_csv)
+        if rc != 0 or len(ids) != n_serve or served != 2 * batches:
+            raise AssertionError(f"SaltUNet serve: rc {rc}, {len(ids)} rows, "
+                                 f"{served} preprocess launches")
+        counts["preprocess"] += served
+        best = load_flat_npz(os.path.join(exp, "checkpoints", "network",
+                                          "best.npz"))
+    cfg.model.architecture = "SaltUNet"
+    cfg.model.n_filters = SALT_UNET_FILTERS
+    cfg.model.repeat_blocks = SALT_UNET_LEVELS
+    model = load_flax_flat(build_model(cfg.model), best)
+    x = preprocess_inference(torch.from_numpy(seeded_images(2, seed=3)))
+    x = x.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        cpu = model(x)
+        model = model.to(dev, memory_format=torch.channels_last)
+        fp32 = model(x.to(dev))
+        model.set_compute_dtype(torch.bfloat16)
+        bf16 = model(x.to(dev))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fp32.cpu(), cpu, rtol=2e-3, atol=2e-3)
+    scale = float(fp32.abs().max())
+    err16 = float((bf16 - fp32).abs().max())
+    if not (torch.isfinite(bf16).all() and err16 <= 0.1 * scale):
+        raise AssertionError(f"SaltUNet bf16 vs fp32 logits: max err {err16},"
+                             f" logit scale {scale}")
+    log("salt_unet", serve_images=n_serve, serve_preprocess_launches=served,
+        params=sum(p.numel() for p in model.parameters()),
+        fp32_vs_cpu=float((fp32.cpu() - cpu).abs().max()),
+        bf16_vs_fp32=err16, logit_scale=scale, card=repr(card))
+    return counts
+
+
+#: the losses ported in this slice of the port, held on the card
+NEW_LOSSES = ("dice", "mixed_dice_bce", "mixed_dice_ce", "focal",
+              "focal_weighted")
+
+
+def phase_losses(dev):
+    """Each of NEW_LOSSES and its gradient with respect to the logits on
+    the card against the CPU, fp32, at a train batch's shape (24 NHWC
+    128 x 128 x 2 logits, one-hot targets of disc masks, one image empty
+    and one full): rtol 1e-4 on the value and on each gradient element
+    plus 1e-6 of the gradient's largest magnitude (the two devices sum
+    the 786,432 terms of a mean in different orders)."""
+    import numpy as np
+    import torch
+    from salt_tpu_torch.losses.api import get_loss_fn
+    rng = np.random.RandomState(8)
+    logits = torch.from_numpy(
+        (3 * rng.randn(TRAIN_BATCH, 128, 128, 2)).astype(np.float32))
+    yy, xx = np.mgrid[:128, :128]
+    masks = np.zeros((TRAIN_BATCH, 128, 128), np.float32)
+    for i in range(2, TRAIN_BATCH):
+        cy, cx, r = rng.rand(3) * (128, 128, 40)
+        masks[i][(yy - cy) ** 2 + (xx - cx) ** 2 < (r + 4) ** 2] = 1.0
+    masks[1] = 1.0
+    target = torch.from_numpy(np.stack([1 - masks, masks], axis=-1))
+    for name in NEW_LOSSES:
+        fn = get_loss_fn(name)
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            x = logits.to(d, copy=True).requires_grad_(True)
+            value = fn(x, target.to(d))
+            value.backward()
+            out[d.type] = (value.detach().cpu(), x.grad.cpu())
+        (v_card, g_card), (v_cpu, g_cpu) = out["cuda"], out["cpu"]
+        torch.testing.assert_close(v_card, v_cpu, rtol=1e-4, atol=0)
+        g_scale = float(g_cpu.abs().max())
+        torch.testing.assert_close(g_card, g_cpu, rtol=1e-4,
+                                   atol=1e-6 * g_scale)
+        log("losses", loss=name, value=float(v_cpu),
+            value_err=float((v_card - v_cpu).abs()),
+            grad_max_abs_err=float((g_card - g_cpu).abs().max()),
+            grad_scale=g_scale)
+
+
+def phase_bench(card):
+    """``python -m salt_tpu_torch.tools.bench`` at reduced windows (it
+    prints its line; its keys and rates are checked). The TTA steps launch
+    the preprocess kernel and the train steps the sort kernel; returns
+    their launches."""
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.tools import bench
+    pk.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    line = bench.main(["--iters", "10", "--windows", "2", "--train-iters",
+                       "5", "--profile-steps", "3"])
+    wall = time.perf_counter() - t0
+    counts = dict(preprocess=pk.launches, sort=sk.launches)
+    rates = ("flagship_tta_bf16", "flagship_train", "salt_unet16_tta",
+             "serve_synthetic_2048")
+    steps = line["breakdown"]
+    if (not all(line[k]["value"] > 0 for k in rates)
+            or line["flagship_tta_int8"] is not None
+            or steps["tta_step"]["kernels"]["preprocess_inference_kernel"][
+                "launches_per_step"] != 1
+            or not steps["train_step"]["kernels"][bench.KERNEL_PREFIX][
+                "launches_per_step"] > 0
+            or not counts["preprocess"] or not counts["sort"]):
+        raise AssertionError(f"bench line {line}, launches {counts}")
+    log("bench", wall_s=f"{wall:.3f}", preprocess_launches=counts[
+        "preprocess"], sort_launches=counts["sort"], card=repr(card),
+        **{k: f"{line[k]['value']:.1f}" for k in rates})
+    return counts
+
+
 def main():
     try:
         import torch
@@ -1686,18 +1933,29 @@ def main():
     phase_train_profile(dev, smi)
     cv_on, cv_off = phase_cv(smi)
     meta = phase_metadata(smi)
+    synthetic_preprocess = phase_serve_synthetic(dev, smi)
+    salt_unet = phase_salt_unet(dev, smi)
+    phase_losses(dev)
+    bench_counts = phase_bench(smi)
     preprocess["launches"] = (serve_preprocess + train_preprocess
                               + cv_on["preprocess"] + cv_off["preprocess"]
-                              + meta["preprocess"])
-    sort["launches"] = train_sort + cv_on["sort"] + meta["sort"]
+                              + meta["preprocess"] + synthetic_preprocess
+                              + salt_unet["preprocess"]
+                              + bench_counts["preprocess"])
+    sort["launches"] = (train_sort + cv_on["sort"] + meta["sort"]
+                        + salt_unet["sort"] + bench_counts["sort"])
     conv["launches"] = serve_conv + cv_on["conv"] + ab_launches
     for key, count in probe_launches.items():
         probes[key]["launches"] = count
     log("launches", preprocess_serve=serve_preprocess,
         preprocess_train=train_preprocess,
         preprocess_cv=cv_on["preprocess"] + cv_off["preprocess"],
-        preprocess_metadata=meta["preprocess"], sort_train=train_sort,
+        preprocess_metadata=meta["preprocess"],
+        preprocess_serve_synthetic=synthetic_preprocess,
+        preprocess_salt_unet=salt_unet["preprocess"],
+        preprocess_bench=bench_counts["preprocess"], sort_train=train_sort,
         sort_cv=cv_on["sort"], sort_metadata=meta["sort"],
+        sort_salt_unet=salt_unet["sort"], sort_bench=bench_counts["sort"],
         conv_serve=serve_conv,
         conv_cv=cv_on["conv"], conv_ab=ab_launches, **probe_launches)
     print(json.dumps({"kernels": [

@@ -12,13 +12,18 @@ under the same name:
 - ``salt_tpu_torch.ops``       preprocessing (plain torch + the CUDA kernel),
                                augmentation, the bitonic sort (plain torch +
                                the CUDA kernel), TTA, RLE codec, kernel build
-- ``salt_tpu_torch.losses``    the Lovász hinge / softmax, stable BCE
+- ``salt_tpu_torch.losses``    the Lovász hinge / softmax, stable BCE, dice
+                               and the mixed dice losses, the focal loss
 - ``salt_tpu_torch.metrics``   IoU / IOUT
 - ``salt_tpu_torch.models``    UNetResNet (ResNet 18/34 encoder, scSE decoder,
-                               hypercolumn head) and the flax-checkpoint bridge
+                               hypercolumn head), the scratch SaltUNet and
+                               SaltLinkNet, and the flax-checkpoint bridge
 - ``salt_tpu_torch.train``     ``SegmentationRunner`` (train, eval and predict
-                               steps), train state, callbacks, the fit loop
-- ``salt_tpu_torch.pipeline``  the ``train`` and ``serve`` entry points
+                               steps), train state, callbacks, the fit loop,
+                               the throughput probes
+- ``salt_tpu_torch.pipeline``  the ``train``, CV and ``serve`` entry points
+- ``salt_tpu_torch.tools``     the probes, A/Bs, the bench and the profiler
+                               reading
 
 The package imports torch, numpy, pandas, PIL and yaml, never jax, flax or
 anything of ``salt_tpu``. Entry points run on ``device="cuda"`` unless the

@@ -16,6 +16,8 @@ Usage:
         --images-dir DIR [--out submission.csv] [--no-tta] \
         [--probs-out probs.npz] [--config cfg.yaml] [--set section.field=v] \
         [--device cuda|cpu]
+    python -m salt_tpu_torch.cli serve --synthetic N \
+        [--checkpoint EXP_DIR_OR_NPZ] [the other serve options]
 
 ``prepare-metadata`` scans ``paths.train_images_dir`` (``images/``,
 ``masks/``), ``paths.test_images_dir`` (``images/``) and
@@ -25,8 +27,11 @@ configured network on the first fold of the data
 (``paths.metadata_filepath``, or N generated images with ``--synthetic``
 and a test set of max(N // 4, 8) images without masks, seed + 1) into
 ``paths.experiment_dir``; the CV commands train and/or evaluate every
-fold there, and the ``predict`` ones write ``submission.csv``. Every
-other command runs on the CUDA card by default and fails where there is
+fold there, and the ``predict`` ones write ``submission.csv``.
+``serve --synthetic N`` serves N generated images (seed
+``execution.seed``) in place of ``--images-dir``, from the checkpoint or,
+without one, from the runner's seeded initial weights. Every other
+command runs on the CUDA card by default and fails where there is
 none, unless ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -84,9 +89,9 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--synthetic", type=int, default=0, metavar="N",
-                        help="every command but serve: N generated images "
-                             "(and max(N // 4, 8) test images) instead of "
-                             "the data dirs")
+                        help="N generated images instead of the data "
+                             "dirs (and max(N // 4, 8) test images); serve: "
+                             "N generated images instead of --images-dir")
     parser.add_argument("--synthetic-difficulty", default="easy",
                         choices=["easy", "hard", "real"])
     parser.add_argument("--epochs", type=int, default=None)
@@ -112,8 +117,9 @@ def main(argv=None):
     from salt_tpu_torch.pipeline.serving import serve
     cfg.postpro.use_tta = not args.no_tta
     print(serve(cfg, args.checkpoint, args.images_dir, args.out,
-                args.probs_out, user_set=tuple(overrides),
-                device=args.device))
+                args.probs_out, synthetic=args.synthetic,
+                synthetic_difficulty=args.synthetic_difficulty,
+                user_set=tuple(overrides), device=args.device))
     return 0
 
 

@@ -143,28 +143,44 @@ def sliced_concat_conv(branches: Sequence[torch.Tensor], weight: torch.Tensor,
 
 
 class ConvBnRelu(nn.Module):
-    """3x3 conv (no bias, stride 1) -> BN -> ReLU. Given a list of
-    branches it convolves their implicit concat (the JAX package's
-    ``SlicedConcatConvBnRelu``, :278-297)."""
+    """k x k conv (stride 1) -> BN -> ReLU (``salt_tpu/models/blocks.py``
+    ``ConvBnRelu`` :133-162). Without BatchNorm the conv has a bias, as
+    flax's ``use_bias=not use_batch_norm``. SAME padding is flax's: k - 1
+    rows and columns, (k - 1) // 2 of them before, so an even k pads one
+    more after. Given a list of branches (3x3 only) it convolves their
+    implicit concat (the JAX package's ``SlicedConcatConvBnRelu``,
+    :278-297)."""
 
     def __init__(self, in_channels: int, features: int,
-                 pad_mode: str = "same"):
+                 pad_mode: str = "same", kernel_size: int = 3,
+                 use_batch_norm: bool = True):
         super().__init__()
         self.pad_mode = pad_mode
-        self.Conv_0 = nn.Conv2d(in_channels, features, 3,
-                                padding=0 if pad_mode == "reference" else 1,
-                                bias=False)
-        self.BatchNorm_0 = batch_norm(features)
+        self.kernel_size = k = kernel_size
+        # an odd SAME conv pads inside the conv; otherwise F.pad first
+        self.pad_first = pad_mode == "reference" or k % 2 == 0
+        self.Conv_0 = nn.Conv2d(in_channels, features, k,
+                                padding=0 if self.pad_first else k // 2,
+                                bias=not use_batch_norm)
+        self.BatchNorm_0 = batch_norm(features) if use_batch_norm else None
 
     def forward(self, x: Union[torch.Tensor, List[torch.Tensor]],
                 conv: Conv = F.conv2d) -> torch.Tensor:
+        k = self.kernel_size
         if isinstance(x, (list, tuple)):
+            if k != 3:
+                raise ValueError(f"a sliced concat conv is 3x3, not {k}x{k}")
             y = sliced_concat_conv(x, self.Conv_0.weight, conv, self.pad_mode)
         else:
             if self.pad_mode == "reference":
-                x = reference_pad(x, 3, 3)
+                x = reference_pad(x, k, k)
+            elif self.pad_first:
+                lo, hi = (k - 1) // 2, k // 2
+                x = F.pad(x, (lo, hi, lo, hi))
             y = apply_conv(conv, self.Conv_0, x)
-        return F.relu(self.BatchNorm_0(y))
+        if self.BatchNorm_0 is not None:
+            y = self.BatchNorm_0(y)
+        return F.relu(y)
 
 
 class ChannelSELayer(nn.Module):
@@ -221,3 +237,73 @@ class DecoderBlock(nn.Module):
             x = branches if sliced else torch.cat(branches, dim=1)
         x = self.ConvBnRelu_1(self.ConvBnRelu_0(x, conv), conv)
         return F.relu(self.ChannelSELayer_0(x) + self.SpatialSELayer_0(x))
+
+
+class Fp32HeadNet(nn.Module):
+    """A segmentation network whose 1x1 head (the submodule named
+    ``head_name``) runs in fp32 on an fp32 copy of its input, so the
+    logits come out fp32, as in the JAX package. A subclass computes the
+    features in :meth:`_trunk` and calls :meth:`_channel_dropout` where
+    its flax model has ``nn.Dropout(broadcast_dims=(1, 2))``.
+
+    Two precisions:
+    - serving (:meth:`set_compute_dtype`): every submodule but the head
+      is cast to the dtype and computes in it;
+    - training (:meth:`set_training_precision`): every parameter stays
+      fp32, as flax keeps them, and the trunk computes in the dtype under
+      ``torch.autocast``, so the optimizer never updates a bf16 copy.
+    """
+
+    head_name = "head"
+
+    def __init__(self, dropout_2d: float = 0.0):
+        super().__init__()
+        self.dropout_2d = dropout_2d
+        self.compute_dtype = torch.float32
+        self.autocast_dtype: Optional[torch.dtype] = None
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "Fp32HeadNet":
+        """Serving precision: cast every module but the fp32 head to
+        ``dtype``."""
+        self.compute_dtype = dtype
+        self.autocast_dtype = None
+        for name, child in self.named_children():
+            child.to(torch.float32 if name == self.head_name else dtype)
+        return self
+
+    def set_training_precision(self, dtype: torch.dtype) -> "Fp32HeadNet":
+        """Training precision: fp32 parameters, the trunk computing in
+        ``dtype`` under autocast (plain fp32 when ``dtype`` is fp32)."""
+        self.set_compute_dtype(torch.float32)
+        if dtype != torch.float32:
+            self.autocast_dtype = dtype
+        return self
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                infer: bool = False) -> torch.Tensor:
+        """[B, 3, H, W] -> fp32 logits [B, num_classes, H, W]; the infer
+        form with ``infer=True``."""
+        if self.autocast_dtype is None:
+            y = self._trunk(x.to(self.compute_dtype), generator, infer)
+        else:
+            with torch.autocast(x.device.type, dtype=self.autocast_dtype):
+                y = self._trunk(x.to(torch.float32), generator, infer)
+        head = getattr(self, self.head_name)
+        return head(y.to(torch.promote_types(y.dtype, torch.float32)))
+
+    def _trunk(self, x: torch.Tensor, generator: Optional[torch.Generator],
+               infer: bool) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _channel_dropout(self, x: torch.Tensor,
+                         generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Whole channels zeroed with probability ``dropout_2d`` in train
+        mode, the rest scaled by 1 / keep; the mask drawn from
+        ``generator``."""
+        if not (self.dropout_2d > 0 and self.training):
+            return x
+        keep = 1.0 - self.dropout_2d
+        mask = torch.rand((*x.shape[:2], 1, 1), generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)

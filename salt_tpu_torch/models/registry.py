@@ -3,11 +3,13 @@
 (random weights and BN statistics, for the parity and serve checks) and
 ``init_flax_like`` (flax's default initializers, the start of training).
 
-The port builds ``UNetResNet`` only; every other architecture the JAX
-package registers raises ``NotImplementedError`` naming the ROADMAP item
-that ports it. ``model.pallas_conv`` selects the infer form's conv
-callable (:func:`infer_conv_fn`, the counterpart of ``_conv_fn``,
-``salt_tpu/models/registry.py:35-52``).
+The port builds ``UNetResNet``, ``SaltUNet`` and ``SaltLinkNet``; every
+other architecture the JAX package registers raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+``model.pallas_conv`` selects the infer form's conv callable
+(:func:`infer_conv_fn`, the counterpart of ``_conv_fn``,
+``salt_tpu/models/registry.py:35-52``); it reaches the UNetResNet only,
+as the JAX package hands the scratch nets no conv callable.
 """
 from __future__ import annotations
 
@@ -31,10 +33,9 @@ _MODE_CHOICES = {
 }
 
 #: architectures of the JAX registry the port does not build yet
-NOT_PORTED = ("SaltUNet", "SaltLinkNet", "UNetSeResNet", "UNetSeResNetXt",
-              "UNetDenseNet", "UNetResNetWithDepth", "LargeKernelMatters",
-              "PSPNet", "StackingFCN", "StackingFCNWithDepth",
-              "EmptinessClassifier")
+NOT_PORTED = ("UNetSeResNet", "UNetSeResNetXt", "UNetDenseNet",
+              "UNetResNetWithDepth", "LargeKernelMatters", "PSPNet",
+              "StackingFCN", "StackingFCNWithDepth", "EmptinessClassifier")
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -59,11 +60,22 @@ def build_model(cfg: ModelConfig) -> nn.Module:
         raise NotImplementedError(
             f"model.architecture={cfg.architecture!r} is not ported yet "
             "(ROADMAP.md Queue A item 13, other architectures)")
-    if cfg.architecture != "UNetResNet":
+    if cfg.architecture not in ("UNetResNet", "SaltUNet", "SaltLinkNet"):
         raise KeyError(f"unknown architecture {cfg.architecture!r}")
     if cfg.quant_bits:
         raise NotImplementedError("model.quant_bits: int8 serving is not "
                                   "ported yet (ROADMAP.md Queue A item 15)")
+    if cfg.architecture == "SaltUNet":
+        from salt_tpu_torch.models.salt_unet import SaltUNet
+        return SaltUNet(num_classes=cfg.num_classes, n_filters=cfg.n_filters,
+                        conv_kernel=cfg.conv_kernel,
+                        repeat_blocks=cfg.repeat_blocks,
+                        dropout_2d=cfg.dropout_2d).eval()
+    if cfg.architecture == "SaltLinkNet":
+        from salt_tpu_torch.models.salt_unet import SaltLinkNet
+        return SaltLinkNet(num_classes=cfg.num_classes,
+                           n_filters=cfg.n_filters,
+                           repeat_blocks=cfg.repeat_blocks).eval()
     from salt_tpu_torch.models.unet import UNetResNet
     model = UNetResNet(encoder_depth=cfg.encoder_depth or 34,
                        num_classes=cfg.num_classes,

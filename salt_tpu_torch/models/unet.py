@@ -38,29 +38,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from salt_tpu_torch.models.blocks import (Conv, ConvBnRelu, DecoderBlock,
-                                          upsample2x)
+                                          Fp32HeadNet, upsample2x)
 from salt_tpu_torch.models.encoders import RESNET_WIDTHS, ResNetEncoder
 
 
-class UNetTrunk(nn.Module):
+class UNetTrunk(Fp32HeadNet):
     def __init__(self, encoder_depth: int = 34, num_classes: int = 2,
                  use_hypercolumn: bool = True, pool0: bool = False,
                  bottom_channels: int = 512, pad_mode: str = "same",
                  upsample_mode: str = "half_pixel", dropout_2d: float = 0.0,
                  hypercolumn_impl: str = "sum", decoder_impl: str = "sum",
                  infer_conv: Conv = F.conv2d):
-        super().__init__()
+        super().__init__(dropout_2d)
         b = bottom_channels
         self.hypercolumn_impl = hypercolumn_impl
         self.decoder_impl = decoder_impl
         self.infer_conv = infer_conv
-        self.dropout_2d = dropout_2d
-        self.autocast_dtype: Optional[torch.dtype] = None
         c2, c3, c4, c5 = RESNET_WIDTHS
         center = b // 2
         self.use_hypercolumn = use_hypercolumn
         self.upsample_mode = upsample_mode
-        self.compute_dtype = torch.float32
         kw = dict(pad_mode=pad_mode)
         self.encoder = ResNetEncoder(encoder_depth, pool0)
         self.center_conv1 = ConvBnRelu(c5, b, **kw)
@@ -75,49 +72,12 @@ class UNetTrunk(nn.Module):
         self.final_conv = ConvBnRelu(head_in, b // 8, **kw)
         self.head = nn.Conv2d(b // 8, num_classes, 1)
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> "UNetTrunk":
-        """Serving precision: cast every module but the fp32 head to
-        ``dtype``."""
-        self.compute_dtype = dtype
-        self.autocast_dtype = None
-        for name, child in self.named_children():
-            child.to(torch.float32 if name == "head" else dtype)
-        return self
-
-    def set_training_precision(self, dtype: torch.dtype) -> "UNetTrunk":
-        """Training precision: fp32 parameters, the trunk computing in
-        ``dtype`` under autocast (plain fp32 when ``dtype`` is fp32)."""
-        self.set_compute_dtype(torch.float32)
-        if dtype != torch.float32:
-            self.autocast_dtype = dtype
-        return self
-
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None,
-                infer: bool = False) -> torch.Tensor:
-        """[B, 3, H, W] -> fp32 logits [B, num_classes, H, W]; the infer
-        form with ``infer=True``."""
-        if self.autocast_dtype is None:
-            y = self._trunk(x.to(self.compute_dtype), generator, infer)
-        else:
-            with torch.autocast(x.device.type, dtype=self.autocast_dtype):
-                y = self._trunk(x.to(torch.float32), generator, infer)
-        return self.head(y.to(torch.promote_types(y.dtype, torch.float32)))
-
-    def _channel_dropout(self, x: torch.Tensor,
-                         generator: Optional[torch.Generator]) -> torch.Tensor:
-        keep = 1.0 - self.dropout_2d
-        mask = torch.rand((*x.shape[:2], 1, 1), generator=generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, 0.0)
-
     def _trunk(self, x: torch.Tensor, generator: Optional[torch.Generator],
                infer: bool) -> torch.Tensor:
         conv = self.infer_conv if infer else F.conv2d
         sliced = infer and self.decoder_impl == "sum"
         enc2, enc3, enc4, enc5 = self.encoder(x, conv)
-        if self.dropout_2d > 0 and self.training:
-            enc5 = self._channel_dropout(enc5, generator)
+        enc5 = self._channel_dropout(enc5, generator)
         center = self.center_conv2(self.center_conv1(enc5, conv), conv)
         center = F.avg_pool2d(center, 2, stride=2)
         dec5 = self.dec5(center, enc5, conv, sliced)

@@ -14,8 +14,8 @@
   ``serve`` (either package's) rebuilds the trained network from the
   experiment dir alone.
 - ``execution.resume`` continues from the ``last`` checkpoint (the
-  port's own Adam state), ``execution.fine_tuning`` restarts from
-  ``best``.
+  port's own Adam state, or the optax Adam state of one the JAX package
+  wrote), ``execution.fine_tuning`` restarts from ``best``.
 
 Not ported yet, each raising ``NotImplementedError``: auxiliary data
 (ROADMAP.md Queue A item 16), ``parallel.fold_parallel`` (item 17) and the
@@ -43,7 +43,8 @@ from salt_tpu_torch.train.callbacks import (CallbackList, ChannelLogger,
                                             InitialLearningRateFinder,
                                             ModelCheckpoint,
                                             ReduceLROnPlateauScheduler,
-                                            TrainingMonitor)
+                                            TrainingMonitor,
+                                            ValidationImageMonitor)
 from salt_tpu_torch.train.loop import fit
 from salt_tpu_torch.train.state import TrainState
 from salt_tpu_torch.train.steps import SegmentationRunner
@@ -82,16 +83,21 @@ def _lr_schedule_callbacks(t) -> List:
                      "(want plateau | exponential | lr_finder | none)")
 
 
-def _make_callbacks(config: Config, experiment: Experiment,
-                    name: str) -> CallbackList:
+def _make_callbacks(config: Config, experiment: Experiment, name: str,
+                    runner: Optional[SegmentationRunner] = None,
+                    valid_b: Optional[DataBundle] = None) -> CallbackList:
     # every fit passes through here once per trained model: persist the
     # config so serve rebuilds the trained architecture
     experiment.save_json("config", config.to_dict())
     t = config.training
-    if t.validation_images_every:
-        raise NotImplementedError(
-            "training.validation_images_every: the validation image "
-            "monitor is not ported yet (ROADMAP.md Queue A item 12)")
+    image_monitor = []
+    if t.validation_images_every and runner is not None and valid_b is not None:
+        # input|prediction|target triptychs (the JAX package's
+        # pipeline/api.py:91-100)
+        image_monitor = [ValidationImageMonitor(
+            experiment.directory + f"/validation_images_{name}", runner,
+            valid_b.images, valid_b.masks, image_nr=t.validation_image_nr,
+            image_every=t.validation_images_every)]
     return CallbackList([
         ExperimentTiming(),
         TrainingMonitor(epoch_every=1),
@@ -102,6 +108,7 @@ def _make_callbacks(config: Config, experiment: Experiment,
         *_lr_schedule_callbacks(t),
         EarlyStopping(t.validation_metric_name, t.patience,
                       t.minimize_validation_metric),
+        *image_monitor,
         ChannelLogger(experiment.directory + f"/channels_{name}.jsonl"),
     ])
 
@@ -158,7 +165,7 @@ def _fit_fold(config: Config, experiment: Experiment, name: str,
     elif config.execution.fine_tuning and experiment.has_checkpoint(name):
         logger.info("fine-tuning %s from persisted checkpoint", name)
         state = _load_best(runner, experiment, name)
-    callbacks = _make_callbacks(config, experiment, name)
+    callbacks = _make_callbacks(config, experiment, name, runner, valid_b)
     fit(runner, _bundle_tuple(train_b), _bundle_tuple(valid_b),
         callbacks=callbacks, state=state, seed=config.execution.seed,
         start_epoch=start_epoch)

@@ -10,6 +10,11 @@ the dataset never has to fit in RAM; each chunk is one uint8 upload, a
 loop of fused TTA steps per model on the device, the fold mean and
 threshold on the device, and one download of the masks.
 
+With ``synthetic=N`` it serves N generated images (seed
+``execution.seed``, no masks) held in memory instead of a directory,
+and without a checkpoint one model of the runner's seeded initial
+weights (``SegmentationRunner.init_state``), as the JAX package does.
+
 Numerics: fold probabilities accumulate and threshold in fp32; the
 optional probability archive is stored float16.
 """
@@ -176,31 +181,47 @@ class _ProbsWriter:
 
 def serve(config: Config, checkpoint: str, images_dir: str,
           out_csv: str = "submission.csv", probs_out: str = "",
-          chunk_size: int = 8192, user_set: Sequence[str] = (),
+          synthetic: int = 0, chunk_size: int = 8192,
+          synthetic_difficulty: str = "easy", user_set: Sequence[str] = (),
           device: Union[str, torch.device] = "cuda") -> dict:
     """Run the inference stack and write the submission. Returns
     {"n", "images_per_sec", "submission", "seconds", "batches",
     "warmup_batches"} (+ "probs_out"): ``images_per_sec`` is images x
     models over the timed loop's seconds, ``batches`` the forward batches
     of the timed loop (batches x models), ``warmup_batches`` those of the
-    untimed warm-up."""
+    untimed warm-up. ``synthetic`` > 0 serves that many generated images
+    and ignores ``images_dir``; only then may ``checkpoint`` be empty."""
     from salt_tpu_torch.ops.rle import create_submission
     from salt_tpu_torch.train.steps import SegmentationRunner, pad_batch
 
     dev = resolve_device(device)
-    if not checkpoint:
+    if not checkpoint and not synthetic:
         raise ValueError(
-            "serve requires --checkpoint (a best.npz, an experiment dir, or "
-            "a CV experiment dir) — refusing to write a fresh-random-weights "
-            "submission")
-    config = adopt_checkpoint_config(config, checkpoint, user_set)
-    ckpts = resolve_checkpoints(checkpoint)
-    ids, paths = list_images(images_dir)
+            "serve on real images requires --checkpoint (a best.npz, an "
+            "experiment dir, or a CV experiment dir) — refusing to write a "
+            "fresh-random-weights submission")
+    if checkpoint:
+        config = adopt_checkpoint_config(config, checkpoint, user_set)
+    ckpts = resolve_checkpoints(checkpoint) if checkpoint else []
+    if synthetic:
+        from salt_tpu_torch.data.bundle import synthetic_bundle
+        bundle = synthetic_bundle(synthetic, seed=config.execution.seed,
+                                  with_masks=False,
+                                  difficulty=synthetic_difficulty)
+        ids, paths = bundle.meta["id"].tolist(), None
+        mem_images = bundle.images
+    else:
+        ids, paths = list_images(images_dir)
+        mem_images = None
     logger.info("serving %d images, %d checkpoint(s), tta=%s, device=%s",
                 len(ids), len(ckpts), config.postpro.use_tta, dev)
 
     runner = SegmentationRunner(config, dev)
-    models = [runner.restore(c) for c in ckpts]     # on the device, once
+    if ckpts:
+        models = [runner.restore(c) for c in ckpts]     # on the device, once
+    else:
+        # the JAX package serves its runner's seeded initial state
+        models = [runner.place(runner.init_state(config.execution.seed).model)]
     n_models = len(models)
     step = (runner.predict_tta_step if config.postpro.use_tta
             else runner.predict_step)
@@ -218,7 +239,10 @@ def serve(config: Config, checkpoint: str, images_dir: str,
     def chunks() -> Iterator[Tuple[int, np.ndarray]]:
         for lo in range(0, n, chunk_size):
             hi = min(lo + chunk_size, n)
-            yield hi - lo, decode_images(paths[lo:hi], h_img, w_img)
+            if mem_images is not None:
+                yield hi - lo, mem_images[lo:hi]
+            else:
+                yield hi - lo, decode_images(paths[lo:hi], h_img, w_img)
 
     def prepare(imgs: np.ndarray) -> torch.Tensor:
         """Zero images up to a batch multiple, one upload."""

@@ -1,5 +1,5 @@
 """Training callbacks (own copy of ``salt_tpu/train/callbacks.py``
-:30-383, :421-458): host-side control around the training loop.
+:30-458): host-side control around the training loop.
 
 Counterparts of the reference's callback suite (reference:
 common_blocks/callbacks.py): TrainingMonitor (124-161), ExperimentTiming
@@ -17,7 +17,6 @@ these classes only consume the resulting metrics dict
 The port's ``ModelCheckpoint`` saves ``TrainState.variables()`` (best:
 the flat flax keys, which the JAX package reads) and
 ``TrainState.last_arrays()`` (last: plus the port's Adam state).
-``ValidationImageMonitor`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -373,6 +372,43 @@ class EarlyStopping(Callback):
 
     def training_break(self, ctx) -> bool:
         return self._break
+
+
+class ValidationImageMonitor(Callback):
+    """Save input|prediction|target triptych PNGs every ``image_every``
+    epochs (``salt_tpu/train/callbacks.py`` :385-418; reference:
+    NeptuneMonitor's validation image channel, callbacks.py:327-446):
+    per image the uint8 input, the salt probability times 255 truncated
+    to uint8 and the mask times 255, side by side, the first
+    ``image_nr`` validation images stacked."""
+
+    def __init__(self, directory: str, runner, valid_images, valid_masks,
+                 image_nr: int = 8, image_every: int = 10):
+        self.directory = directory
+        self.runner = runner
+        self.images = np.asarray(valid_images)[:image_nr]
+        self.masks = np.asarray(valid_masks)[:image_nr]
+        self.image_every = image_every
+        os.makedirs(directory, exist_ok=True)
+
+    def on_epoch_end(self, ctx):
+        if not self.image_every or ctx["epoch_id"] % self.image_every:
+            return
+        from PIL import Image
+        model = ctx["state"].model
+        model.eval()                  # the JAX package predicts with train=False
+        probs = self.runner.predict_dataset(model, self.images)
+        rows = []
+        for img, prob, mask in zip(self.images, probs, self.masks):
+            gray = img.astype(np.uint8)
+            pred = (prob[1] * 255).astype(np.uint8)
+            tgt = (mask * 255).astype(np.uint8)
+            rows.append(np.concatenate([gray, pred, tgt], axis=1))
+        grid = np.concatenate(rows, axis=0)
+        path = os.path.join(self.directory,
+                            f"validation_epoch_{ctx['epoch_id']:04d}.png")
+        Image.fromarray(grid).save(path)
+        logger.info("validation image grid saved to %s", path)
 
 
 class ChannelLogger(Callback):

@@ -569,3 +569,209 @@ def test_probe_kernels_refuse_bad_inputs(cuda):
             torch.zeros(1152, 64, dtype=torch.bfloat16, device=cuda))
     assert (conv64p_kernel.launches, conv64p_kernel.launches_v2,
             conv128_kernel.launches, matmul_kernel.launches) == before
+
+
+def _salt_unet_config(arch="SaltUNet"):
+    from salt_tpu_torch.core.config import default_config
+    cfg = default_config()
+    cfg.model.architecture = arch
+    cfg.model.n_filters = 4
+    cfg.model.repeat_blocks = 2
+    cfg.training.dtype = "float32"
+    cfg.training.batch_size_inference = 4
+    cfg.training.batch_size_train = 4
+    return cfg
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("arch", ["SaltUNet", "SaltLinkNet"])
+def test_scratch_nets_on_card_match_cpu(cuda, arch, train):
+    """The scratch nets' fp32 logits on the card (TF32 off) against the
+    CPU from one seeded model, eval and train mode: rtol=atol=2e-3."""
+    import copy
+    from salt_tpu_torch.models.registry import build_model, init_seeded
+    model = init_seeded(build_model(_salt_unet_config(arch).model), seed=2)
+    x = torch.from_numpy(np.random.RandomState(1).randn(2, 3, 64, 64)
+                         .astype(np.float32))
+    card = copy.deepcopy(model).to(cuda, memory_format=torch.channels_last)
+    model.train(train)
+    card.train(train)
+    with torch.no_grad():
+        want, got = model(x), card(x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+def _rle_masks(sub):
+    """[N, 101, 101] masks of a submission frame (column-major,
+    1-indexed (start, length) runs)."""
+    masks = np.zeros((len(sub), 101 * 101), np.uint8)
+    for i, rle in enumerate(sub["rle_mask"]):
+        runs = [int(v) for v in str(rle).split()]
+        for start, length in zip(runs[0::2], runs[1::2]):
+            masks[i, start - 1:start - 1 + length] = 1
+    return masks.reshape(-1, 101, 101).transpose(0, 2, 1)
+
+
+def test_serve_synthetic_on_card_matches_cpu(cuda, tmp_path):
+    """``serve --synthetic 10`` of one seeded SaltUNet checkpoint on the
+    card and on the CPU (fp32, hflip TTA, batch 4): the same ids, masks
+    under the threshold-margin rule against the float16 archives (slack
+    1e-3); the preprocess kernel once per timed and warm-up batch. Then
+    with no checkpoint: the seeded weights."""
+    import json
+    import pandas as pd
+    from salt_tpu_torch.core.experiment import checkpoint_path, save_flat_npz
+    from salt_tpu_torch.models.convert import to_flax_flat
+    from salt_tpu_torch.models.registry import build_model, init_seeded
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.pipeline.serving import serve
+    cfg = _salt_unet_config()
+    cfg.postpro.use_tta = True
+    exp = str(tmp_path / "exp")
+    save_flat_npz(checkpoint_path(exp),
+                  to_flax_flat(init_seeded(build_model(cfg.model), 6)))
+    with open(tmp_path / "exp" / "config.json", "w") as f:
+        json.dump(cfg.to_dict(), f)
+    out = {}
+    for dev in ("cpu", cuda):
+        name = str(dev)
+        before = pk.launches
+        r = serve(cfg, exp, "", str(tmp_path / f"{name}.csv"),
+                  str(tmp_path / f"{name}.npz"), synthetic=10, device=dev)
+        out[name] = (pd.read_csv(tmp_path / f"{name}.csv",
+                                 keep_default_na=False),
+                     np.load(r["probs_out"], allow_pickle=True)["probs"]
+                     .astype(np.float32), pk.launches - before, r)
+    (sub_c, p_c, _, _), (sub_g, p_g, launched, r) = out["cpu"], out["cuda"]
+    assert launched == r["batches"] + r["warmup_batches"] == 6
+    assert sub_c["id"].tolist() == sub_g["id"].tolist()
+    delta = float(np.abs(p_g - p_c).max())
+    assert delta < 1e-3
+    decidable = np.abs(p_c - 0.5) > delta + 1e-3
+    m_c, m_g = _rle_masks(sub_c), _rle_masks(sub_g)
+    np.testing.assert_array_equal(m_g[decidable], m_c[decidable])
+    r = serve(cfg, "", "", str(tmp_path / "seeded.csv"), synthetic=10,
+              device=cuda)
+    assert r["n"] == 10
+
+
+@pytest.mark.parametrize("name", ["dice", "mixed_dice_bce", "mixed_dice_ce",
+                                  "focal", "focal_weighted"])
+def test_losses_on_card_match_cpu(cuda, name):
+    """Value and gradient on the card against the CPU, fp32, batch 4 of
+    NHWC 128 x 128 x 2: rtol 1e-4, gradients within 1e-6 of their
+    largest magnitude (the devices sum in different orders)."""
+    from salt_tpu_torch.losses.api import get_loss_fn
+    rng = np.random.RandomState(5)
+    logits = torch.from_numpy((3 * rng.randn(4, 128, 128, 2))
+                              .astype(np.float32))
+    masks = (rng.rand(4, 16, 16) > 0.5).repeat(8, 1).repeat(8, 2)
+    masks[0] = 0
+    target = torch.from_numpy(np.stack([1 - masks, masks], -1)
+                              .astype(np.float32))
+    fn = get_loss_fn(name)
+    out = []
+    for dev in ("cpu", cuda):
+        x = logits.to(dev, copy=True).requires_grad_(True)
+        value = fn(x, target.to(dev))
+        value.backward()
+        out.append((value.detach().cpu(), x.grad.cpu()))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-4,
+                               atol=1e-6 * float(out[0][1].abs().max()))
+
+
+def test_optax_last_resumes_on_card(cuda):
+    """A ``last`` checkpoint in the JAX package's optax layout (the L2
+    term's chain index) resumes on the card: the moments on each
+    parameter's device in its memory format, Adam's step and the learning
+    rate, and one step runs."""
+    from salt_tpu_torch.models.convert import to_flax_flat
+    from salt_tpu_torch.train.steps import SegmentationRunner
+    cfg = _salt_unet_config()
+    cfg.training.l2_reg_conv = 1e-4
+    runner = SegmentationRunner(cfg, device=cuda)
+    state = runner.init_state(0)
+    flat = to_flax_flat(state.model)
+    rng = np.random.RandomState(0)
+    arrays = dict(flat)
+    arrays["opt_state/hyperparams/learning_rate"] = np.float32(2e-3)
+    arrays["opt_state/count"] = np.int32(3)
+    arrays["opt_state/inner_state/1/0/count"] = np.int32(3)
+    arrays["step"] = np.int32(3)
+    for k, v in flat.items():
+        if k.startswith("params/"):
+            tail = k[len("params/"):]
+            arrays[f"opt_state/inner_state/1/0/mu/{tail}"] = (
+                rng.randn(*v.shape).astype(np.float32))
+            arrays[f"opt_state/inner_state/1/0/nu/{tail}"] = (
+                rng.rand(*v.shape).astype(np.float32))
+    state.load_optimizer_arrays(arrays)
+    assert state.step == 3 and state.learning_rate == pytest.approx(2e-3)
+    for p in state.model.parameters():
+        st = state.optimizer.state[p]
+        assert st["exp_avg"].device == p.device and int(st["step"]) == 3
+        assert st["exp_avg"].stride() == p.stride()
+    imgs = _images(4, seed=1).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    assert torch.isfinite(runner.train_step(state, imgs,
+                                            (imgs > 128).to(torch.uint8), g))
+
+
+def test_validation_image_monitor_on_card(cuda, tmp_path):
+    """The monitor's PNG from one seeded SaltUNet on the card against the
+    CPU's: the input and target columns equal, the prediction column
+    within one grey level."""
+    from types import SimpleNamespace
+    from PIL import Image
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.models.registry import build_model, init_seeded
+    from salt_tpu_torch.train.callbacks import ValidationImageMonitor
+    from salt_tpu_torch.train.steps import SegmentationRunner
+    cfg = _salt_unet_config()
+    bundle = synthetic_bundle(4, seed=2)
+    grids = []
+    for dev in ("cpu", cuda):
+        runner = SegmentationRunner(cfg, device=dev)
+        model = runner.place(init_seeded(build_model(cfg.model), 3))
+        d = tmp_path / str(dev)
+        ValidationImageMonitor(str(d), runner, bundle.images, bundle.masks,
+                               image_nr=4, image_every=1).on_epoch_end(
+            {"epoch_id": 0, "state": SimpleNamespace(model=model)})
+        grids.append(np.asarray(Image.open(
+            d / "validation_epoch_0000.png")).astype(np.int16))
+    assert grids[0].shape == grids[1].shape == (4 * 101, 3 * 101)
+    for col in (0, 2):
+        np.testing.assert_array_equal(grids[1][:, col * 101:(col + 1) * 101],
+                                      grids[0][:, col * 101:(col + 1) * 101])
+    assert np.abs(grids[1] - grids[0]).max() <= 1
+
+
+def test_bench_tiny_on_card(cuda):
+    """The bench tool at its tiny size on the card: every key, positive
+    rates, and the breakdown measured with the preprocess kernel once per
+    TTA step and the sort kernel in the train step."""
+    from salt_tpu_torch.tools import bench
+    line = bench.main(["--tiny", "--iters", "2", "--windows", "1",
+                       "--train-iters", "2", "--profile-steps", "2"])
+    assert line["device"]["platform"] == "gpu"
+    assert line["flagship_tta_int8"] is None
+    tta = line["breakdown"]["tta_step"]
+    train = line["breakdown"]["train_step"]
+    assert tta["device_ms"] > 0 and 0 < tta["busy_share"]
+    assert tta["kernels"]["preprocess_inference_kernel"][
+        "launches_per_step"] == 1
+    assert train["kernels"][bench.KERNEL_PREFIX]["launches_per_step"] > 0
+
+
+def test_whole_session_kernel_ms_on_card(cuda):
+    """``tools/profiling.kernel_ms`` of the preprocess kernel (bf16
+    out): one launch a call, a time above the kernel's bytes bound."""
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.tools.profiling import kernel_ms
+    imgs = _images(48, seed=4).to(cuda)
+    ms = kernel_ms(lambda: pk.preprocess_inference_kernel(imgs),
+                   "preprocess_inference_kernel", iters=20,
+                   launches_per_call=1)
+    bound = (48 * 101 * 101 + 48 * 128 * 128 * 3 * 2) / 3.35e12 * 1e3
+    assert ms > bound

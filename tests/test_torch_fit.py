@@ -222,8 +222,10 @@ def test_port_serves_its_trained_checkpoint(trained):
 
 
 def test_resume_continues_from_the_port_last_checkpoint(trained, tmp_path):
-    """A second epoch from ``last``; a ``last`` without the port's Adam
-    state (the JAX package's) is refused with a clear message."""
+    """A second epoch from ``last``; a ``last`` with no optimizer state
+    (neither the port's Adam state nor the optax state of one the JAX
+    package wrote, which resumes: tests/test_torch_resume_jax.py) is
+    refused with a clear message."""
     import shutil
     from salt_tpu_torch.core.experiment import Experiment, save_flat_npz
     from salt_tpu_torch.pipeline.api import load_last
@@ -239,7 +241,7 @@ def test_resume_continues_from_the_port_last_checkpoint(trained, tmp_path):
         arrays = {k: data[k] for k in data.files
                   if not k.startswith("torch_adam")}
     save_flat_npz(p, arrays)
-    with pytest.raises(ValueError, match="JAX package"):
+    with pytest.raises(ValueError, match="no optimizer state"):
         load_last(runner, Experiment(copy), "network")
     assert torch.isfinite(next(state.model.parameters())).all()
 

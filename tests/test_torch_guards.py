@@ -27,7 +27,9 @@ for needed in ("pipeline.serving", "ops.preprocess_kernel", "ops.sort_kernel",
                "data.bundle", "metrics.iout", "ops.probe_conv",
                "ops.conv64p_kernel", "ops.conv128_kernel",
                "ops.matmul_kernel", "tools.conv_probe", "tools.conv_probe2",
-               "tools.ab_conv", "tools.preprocess_ab", "data.metadata"):
+               "tools.ab_conv", "tools.preprocess_ab", "data.metadata",
+               "models.salt_unet", "losses.dice", "losses.focal",
+               "train.throughput", "tools.bench", "tools.profiling"):
     assert "salt_tpu_torch." + needed in names, names
 for name in names:
     importlib.import_module(name)

@@ -146,8 +146,13 @@ def test_stable_bce_and_the_registry():
     got = float(get_loss_fn("bce")(torch.from_numpy(logits),
                                    torch.from_numpy(labels)))
     np.testing.assert_allclose(got, want, **TOL)
+    # the other losses are ported (tests/test_torch_losses_extra.py)
+    from salt_tpu.losses.api import get_loss_fn as jax_get_loss_fn
     for name in ("dice", "focal", "mixed_dice_bce"):
-        with pytest.raises(NotImplementedError, match="Queue A item 14"):
-            get_loss_fn(name)
+        want = float(jax_get_loss_fn(name)(jnp.asarray(logits),
+                                           jnp.asarray(labels)))
+        got = float(get_loss_fn(name)(torch.from_numpy(logits),
+                                      torch.from_numpy(labels)))
+        np.testing.assert_allclose(got, want, **TOL)
     with pytest.raises(KeyError):
         get_loss_fn("nope")

@@ -72,9 +72,11 @@ def test_registry_validates_and_names_unported():
     with pytest.raises(ValueError, match="upsample_mode"):
         build_model(cfg.model)
     cfg = default_config()
-    cfg.model.architecture = "SaltUNet"
+    cfg.model.architecture = "PSPNet"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.model)
+    cfg.model.architecture = "SaltUNet"          # ported: it builds
+    assert type(build_model(cfg.model)).__name__ == "SaltUNet"
     cfg = default_config()
     cfg.model.encoder_depth = 50
     with pytest.raises(NotImplementedError, match="ROADMAP"):
