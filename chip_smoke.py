@@ -3,8 +3,8 @@
 UNetResNet34 at full width, end to end, on its paths — hflip-TTA
 ``serve`` (from checkpoints and ``--synthetic``), ``train`` and the
 K-fold CV loop (``train-evaluate-predict-cv`` / ``evaluate-predict-cv``)
-— the scratch SaltUNet's train, resume and serve, the other losses, and
-the port's bench.
+— the scratch SaltUNet's train, resume and serve, the other losses, the
+U-Net on the other encoders and the depth net, and the port's bench.
 
     python3 chip_smoke.py
 
@@ -63,7 +63,19 @@ Phases (each raises on failure; the script then exits non-zero):
                 forward fp32 against the CPU and bf16 against fp32;
 14. losses    — dice, the mixed dice losses and the focal losses, value
                 and gradient, on the card against the CPU;
-15. bench     — ``python -m salt_tpu_torch.tools.bench`` at reduced
+15. arch      — the U-Net on the SE-ResNet-50, SE-ResNeXt-50,
+                DenseNet-121 and ResNet-50 encoders and
+                UNetResNetWithDepth-34, full width, bf16, conv kernel
+                "on", seeded weights: fp32 logits on the card against the
+                CPU (batch 2), hflip-TTA masks of 64 synthetic images
+                against the CPU's fp32 under the margin rule, ``serve
+                --synthetic 480`` at batch 24 (images/s; the preprocess
+                and conv kernels' launches against the JAX route's
+                counts); ``pipeline.api.train`` of UNetSeResNet-50 and
+                the depth net (the bundle's depths), 2 epochs of 5 steps
+                at batch 24; a pretrained se_resnet50 ``.npz`` grafted
+                into UNetSeResNet-50 and one train step;
+16. bench     — ``python -m salt_tpu_torch.tools.bench`` at reduced
                 windows (it prints its JSON line).
 Device times come from whole profiler sessions (``tools/profiling.py``:
 the profiler loses events), and a kernel's or a library call's time
@@ -1895,6 +1907,339 @@ def phase_bench(card):
     return counts
 
 
+#: the arch phase's architectures: (name, encoder_depth, the conv kernel's
+#: launches per infer forward at 128x128 under the JAX dispatch's rules:
+#: the three layer1 3x3 64 -> 64 conv2s of a bottleneck ResNet; the
+#: flagship trunk's 6 encoder and 3 dec2 convs for the depth net, whose
+#: final_conv sees 320 channels; none in SE-ResNeXt (32 groups of 4) or
+#: DenseNet (growth 32))
+ARCH_CELLS = (("UNetSeResNet", 50, 3), ("UNetSeResNetXt", 50, 0),
+              ("UNetDenseNet", 121, 0), ("UNetResNet", 50, 3),
+              ("UNetResNetWithDepth", 34, 9))
+ARCH_TRAIN = ("UNetSeResNet", "UNetResNetWithDepth")
+N_ARCH_TTA = 64                   # hflip-TTA masks, card bf16 vs CPU fp32
+N_ARCH_SERVE = 480                # serve --synthetic, batch 24
+N_ARCH_TRAIN = 144                # fold 0 of 6: 120 train / 24 valid
+
+
+def _arch_config(arch, depth):
+    from salt_tpu_torch.core.config import default_config
+    cfg = default_config()                 # bf16, batch 24, hflip TTA
+    cfg.model.architecture = arch
+    cfg.model.encoder_depth = depth
+    cfg.model.pallas_conv = "on"
+    cfg.postpro.use_tta = True
+    return cfg
+
+
+def _arch_forward(dev, card, arch, depth, per_forward):
+    """One architecture from seeded weights: fp32 logits on the card (TF32
+    off) against the CPU at batch 2, in both forms, at rtol=atol=2e-3;
+    hflip-TTA probabilities of N_ARCH_TTA synthetic images (with their
+    depths) in bf16 through the conv kernel on the card against fp32 on
+    the CPU, masks under the threshold-margin rule at the CPU
+    probabilities' median (seeded weights leave nearly every pixel on one
+    side of 0.5); the conv kernel's launches per infer forward; where one
+    TTA step's device time goes (5 steps of 24 images). Returns the conv
+    launches."""
+    import copy
+    import numpy as np
+    import torch
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.models.registry import build_model, init_seeded
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops.preprocess import preprocess_inference
+    from salt_tpu_torch.tools.profiling import step_breakdown
+    from salt_tpu_torch.train.steps import SegmentationRunner
+
+    cfg = _arch_config(arch, depth)
+    model = init_seeded(build_model(cfg.model), seed=0)
+    takes = model.takes_depth
+    x = preprocess_inference(torch.from_numpy(seeded_images(2, seed=3)))
+    x = x.permute(0, 3, 1, 2)
+    d = torch.tensor([[0.25], [0.8]]) if takes else None
+    on = (lambda t: t.to(dev)) if takes else (lambda t: None)
+    with torch.no_grad():
+        cpu = model(x, depth=d)
+        cpu_infer = model(x, infer=True, depth=d)
+        card_model = copy.deepcopy(model).to(
+            dev, memory_format=torch.channels_last)
+        fp32 = card_model(x.to(dev), depth=on(d))
+        fp32_infer = card_model(x.to(dev), infer=True, depth=on(d))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fp32.cpu(), cpu, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(fp32_infer.cpu(), cpu_infer, rtol=2e-3,
+                               atol=2e-3)
+
+    bundle = synthetic_bundle(N_ARCH_TTA, seed=7, with_masks=False)
+    cpu_cfg = _arch_config(arch, depth)
+    cpu_cfg.training.dtype = "float32"
+    cpu_cfg.training.batch_size_inference = 8
+    cpu_runner = SegmentationRunner(cpu_cfg, "cpu")
+    t0 = time.perf_counter()
+    p_cpu = cpu_runner.predict_dataset(cpu_runner.place(model), bundle.images,
+                                       bundle.depths, tta=True)
+    cpu_s = time.perf_counter() - t0
+    runner = SegmentationRunner(cfg, dev)
+    card_model = runner.place(card_model)
+    ck.launches = 0
+    p_card = runner.predict_dataset(card_model, bundle.images, bundle.depths,
+                                    tta=True)
+    torch.cuda.synchronize()
+    launches = ck.launches
+    forwards = math.ceil(N_ARCH_TTA / cfg.training.batch_size_inference)
+    if launches != per_forward * forwards:
+        raise AssertionError(f"{arch}: conv kernel launched {launches} times "
+                             f"in {forwards} infer forwards, expected "
+                             f"{per_forward} each")
+    if not np.isfinite(p_card).all():
+        raise AssertionError(f"{arch}: non-finite card probabilities")
+    threshold = float(np.median(p_cpu[:, 1]))
+    delta, undecidable = margin_rule(
+        f"{arch} bf16 card vs fp32 CPU", p_card[:, 1], p_cpu[:, 1],
+        p_card[:, 1] > threshold, p_cpu[:, 1] > threshold, threshold)
+    imgs = torch.from_numpy(bundle.images[:SERVE_BATCH]).to(dev)
+    depths = (torch.from_numpy(bundle.depths[:SERVE_BATCH]).to(dev)
+              if takes else None)
+    steps = step_breakdown(
+        lambda i: runner.predict_tta_step(card_model, imgs, depths),
+        steps=5, top=4)
+    log("arch_profile", arch=f"{arch}-{depth}", step="predict_tta_step",
+        images=SERVE_BATCH, wall_ms=f"{steps['wall_ms']:.3f}",
+        device_ms=f"{steps['device_ms']:.3f}",
+        busy_share=f"{steps['busy_share']:.3f}",
+        launches_per_step=steps["launches_per_step"],
+        top=[(t["kernel"][:60], t["calls_per_step"],
+              round(t["ms_per_step"], 3)) for t in steps["top"]],
+        card=repr(card))
+    log("arch", arch=f"{arch}-{depth}", params=sum(
+        p.numel() for p in model.parameters()),
+        fp32_vs_cpu=float((fp32.cpu() - cpu).abs().max()),
+        fp32_infer_vs_cpu=float((fp32_infer.cpu() - cpu_infer).abs().max()),
+        logit_scale=float(cpu.abs().max()), tta_images=N_ARCH_TTA,
+        tta_prob_delta=delta, tta_undecidable_px=undecidable,
+        salt_fraction_at_half=f"{float(np.mean(p_cpu[:, 1] > 0.5)):.4f}",
+        mask_threshold=threshold,
+        conv_launches_per_forward=launches // max(forwards, 1),
+        cpu_fp32_tta_s=f"{cpu_s:.3f}", card=repr(card))
+    return launches
+
+
+def _arch_serve(dev, card, arch, depth, per_forward):
+    """``serve --synthetic N_ARCH_SERVE`` of the runner's seeded weights,
+    bf16, hflip TTA, batch 24, the conv kernel on: images/s, and the
+    launches of rows 1 and 3 (each forward batch, timed and warm-up)."""
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.pipeline.serving import serve
+
+    cfg = _arch_config(arch, depth)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_csv = os.path.join(tmp, "submission.csv")
+        pk.launches = ck.launches = 0
+        t0 = time.perf_counter()
+        result = serve(cfg, "", "", out_csv, synthetic=N_ARCH_SERVE,
+                       device=dev)
+        wall = time.perf_counter() - t0
+        counts = dict(preprocess=pk.launches, conv=ck.launches)
+        ids, _ = _csv_masks(out_csv)
+    if ids != synthetic_bundle(N_ARCH_SERVE, seed=cfg.execution.seed,
+                               with_masks=False).meta["id"].tolist():
+        raise AssertionError(f"{arch} serve: ids")
+    forwards = result["batches"] + result["warmup_batches"]
+    if (result["batches"] != math.ceil(N_ARCH_SERVE / SERVE_BATCH)
+            or counts != dict(preprocess=forwards,
+                              conv=per_forward * forwards)):
+        raise AssertionError(f"{arch} serve: {result}, launches {counts}")
+    log("arch_serve", arch=f"{arch}-{depth}", images=N_ARCH_SERVE,
+        batch=SERVE_BATCH, tta="hflip", dtype=cfg.training.dtype,
+        images_per_s=result["images_per_sec"],
+        timed_s=f"{result['seconds']:.3f}", wall_s=f"{wall:.3f}",
+        batches=result["batches"], warmup_batches=result["warmup_batches"],
+        preprocess_launches=counts["preprocess"],
+        conv_launches=counts["conv"], card=repr(card))
+    return counts
+
+
+def _arch_train(dev, card, arch, depth, per_forward):
+    """``pipeline.api.train`` on N_ARCH_TRAIN synthetic images (their depths
+    reach the depth net), bf16, batch 24, 2 epochs, the conv kernel on:
+    the sort kernel once per train step and validation-loss batch, the
+    preprocess kernel once per validation predict and loss batch, the
+    conv kernel in the validation predicts; finite losses and a validation
+    sweep each epoch; the step time of the second epoch."""
+    import torch
+    from salt_tpu_torch.core.experiment import Experiment
+    from salt_tpu_torch.core.logging import get_logger, init_logger
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.pipeline import api
+
+    cfg = _arch_config(arch, depth)
+    cfg.training.epochs = TRAIN_EPOCHS
+    bundle = synthetic_bundle(N_ARCH_TRAIN, seed=cfg.execution.seed)
+    n_valid = math.ceil(N_ARCH_TRAIN / cfg.execution.n_cv_splits)
+    steps = TRAIN_EPOCHS * ((N_ARCH_TRAIN - n_valid) // TRAIN_BATCH)
+    val = TRAIN_EPOCHS * math.ceil(n_valid / cfg.training.batch_size_inference)
+    times = _EpochTimes()
+    init_logger()
+    get_logger().addHandler(times.handler)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.paths.experiment_dir = os.path.join(tmp, "exp")
+        sk.launches = pk.launches = ck.launches = 0
+        t0 = time.perf_counter()
+        runner = api.train(cfg, Experiment(cfg.paths.experiment_dir), bundle,
+                           device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sort=sk.launches, preprocess=pk.launches,
+                      conv=ck.launches)
+        get_logger().removeHandler(times.handler)
+        with open(os.path.join(cfg.paths.experiment_dir,
+                               "channels_network.jsonl")) as f:
+            epochs = [json.loads(line) for line in f]
+    want = dict(sort=steps + val, preprocess=2 * val, conv=per_forward * val)
+    losses = [e["train_loss"] for e in epochs] + [e["sum"] for e in epochs]
+    if (counts != want or len(epochs) != TRAIN_EPOCHS
+            or not all(map(math.isfinite, losses))
+            or not all(0.0 <= e["iout"] <= 1.0 for e in epochs)
+            or runner.use_depth != (arch == "UNetResNetWithDepth")):
+        raise AssertionError(f"{arch} train: launches {counts} (expected "
+                             f"{want}), epochs {epochs}")
+    mean_batch = times.epochs[-1][2]
+    log("arch_train", arch=f"{arch}-{depth}", images=N_ARCH_TRAIN,
+        train_images=N_ARCH_TRAIN - n_valid, valid_images=n_valid,
+        epochs=TRAIN_EPOCHS, batch=TRAIN_BATCH, steps=steps,
+        use_depth=runner.use_depth, wall_s=f"{wall:.3f}",
+        epoch2_ms_per_step=f"{mean_batch * 1e3:.3f}",
+        epoch2_train_images_per_s=f"{TRAIN_BATCH / mean_batch:.1f}",
+        sort_launches=counts["sort"], preprocess_launches=counts[
+            "preprocess"], conv_launches=counts["conv"],
+        train_loss=[round(e["train_loss"], 5) for e in epochs],
+        val_iout=[round(e["iout"], 5) for e in epochs], card=repr(card))
+    return counts
+
+
+def _se_resnet50_state_dict(seed):
+    """A pretrainedmodels-layout se_resnet50 encoder: the ``layer0.``
+    stem, SEResNetBottleneck blocks with ``se_module.fc1/fc2`` gates;
+    conv weights N(0, 1 / fan_in), BN and biases as the seeded
+    initializer draws them."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[name + ".weight"] = (rng.randn(o, i, k, k)
+                                / np.sqrt(i * k * k)).astype(np.float32)
+
+    def bn(name, c):
+        sd[name + ".weight"] = (0.8 + 0.4 * rng.rand(c)).astype(np.float32)
+        sd[name + ".bias"] = (0.1 * rng.randn(c)).astype(np.float32)
+        sd[name + ".running_mean"] = (0.1 * rng.randn(c)).astype(np.float32)
+        sd[name + ".running_var"] = (0.8 + 0.4 * rng.rand(c)).astype(
+            np.float32)
+
+    conv("layer0.conv1", 64, 3, 7)
+    bn("layer0.bn1", 64)
+    cin = 64
+    for stage, (w, n) in enumerate(zip((256, 512, 1024, 2048),
+                                       (3, 4, 6, 3)), start=1):
+        for i in range(n):
+            pre, c_in = f"layer{stage}.{i}", cin if i == 0 else w
+            for k, (o, ci, ks) in enumerate(((w // 4, c_in, 1),
+                                             (w // 4, w // 4, 3),
+                                             (w, w // 4, 1)), start=1):
+                conv(f"{pre}.conv{k}", o, ci, ks)
+                bn(f"{pre}.bn{k}", o)
+            if i == 0:
+                conv(pre + ".downsample.0", w, c_in, 1)
+                bn(pre + ".downsample.1", w)
+            conv(pre + ".se_module.fc1", w // 16, w, 1)
+            sd[pre + ".se_module.fc1.bias"] = (0.05 * rng.randn(w // 16)
+                                               ).astype(np.float32)
+            conv(pre + ".se_module.fc2", w, w // 16, 1)
+            sd[pre + ".se_module.fc2.bias"] = (0.05 * rng.randn(w)
+                                               ).astype(np.float32)
+        cin = w
+    return sd
+
+
+def _port_key(key):
+    """The port's state_dict key of a pretrainedmodels SENet key."""
+    import re
+    key = key.replace("layer0.", "")
+    key = re.sub(r"^layer(\d)\.(\d+)\.", r"layer\1_\2.", key)
+    key = key.replace("downsample.0.", "downsample_conv.")
+    key = key.replace("downsample.1.", "downsample_bn.BatchNorm_0.")
+    key = key.replace("se_module.", "se.")
+    key = re.sub(r"(^|\.)(bn\d)\.", r"\1\2.BatchNorm_0.", key)
+    return "encoder." + key
+
+
+def _arch_pretrained(dev, card):
+    """``model.pretrained``: a seeded pretrainedmodels-layout se_resnet50
+    ``.npz`` grafted into UNetSeResNet-50 by ``init_state`` on the card;
+    every encoder tensor equals the file's (mapped by name here, apart
+    from the port's converter) before one train step of 24 synthetic
+    images, whose loss is finite and which moves the encoder."""
+    import numpy as np
+    import torch
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.train.steps import SegmentationRunner
+
+    sd = _se_resnet50_state_dict(seed=50)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "se_resnet50.npz")
+        np.savez(path, **sd)
+        cfg = _arch_config("UNetSeResNet", 50)
+        cfg.model.pretrained = True
+        cfg.model.pretrained_weights_path = path
+        runner = SegmentationRunner(cfg, dev)
+        state = runner.init_state(0)
+    have = state.model.state_dict()
+    bad = [k for k, v in sd.items()
+           if not torch.equal(have[_port_key(k)].cpu(), torch.from_numpy(v))]
+    if bad:
+        raise AssertionError(f"grafted encoder differs from the file at "
+                             f"{bad[:5]} ({len(bad)} of {len(sd)})")
+    before = state.model.encoder.conv1.weight.detach().clone()
+    bundle = synthetic_bundle(TRAIN_BATCH, seed=9)
+    imgs, masks = runner.device_batch(bundle.images, bundle.masks)
+    g = torch.Generator(device=dev).manual_seed(0)
+    loss = float(runner.train_step(state, imgs, masks, g))
+    moved = float((state.model.encoder.conv1.weight.detach() - before)
+                  .abs().max())
+    if not (math.isfinite(loss) and moved > 0):
+        raise AssertionError(f"pretrained train step: loss {loss}, encoder "
+                             f"moved {moved}")
+    log("arch_pretrained", arch="UNetSeResNet-50", layout="pretrainedmodels "
+        "se_resnet50 (.npz)", tensors=len(sd), equal_to_file=len(sd),
+        step_loss=f"{loss:.5f}", conv1_moved=moved, card=repr(card))
+
+
+def phase_arch(dev, card):
+    """The U-Net on every encoder and the depth net at full width, bf16,
+    ``model.pallas_conv`` "on": for each of ARCH_CELLS the card against
+    the CPU and its serve; UNetSeResNet-50 and UNetResNetWithDepth-34
+    trained; a pretrained se_resnet50 encoder grafted. Returns the
+    kernels' launches on the serve and train paths."""
+    total = dict(preprocess=0, sort=0, conv=0)
+    for arch, depth, per_forward in ARCH_CELLS:
+        _arch_forward(dev, card, arch, depth, per_forward)
+        counts = _arch_serve(dev, card, arch, depth, per_forward)
+        if arch in ARCH_TRAIN:
+            train = _arch_train(dev, card, arch, depth, per_forward)
+            counts = {k: counts.get(k, 0) + train.get(k, 0) for k in total}
+        for k in total:
+            total[k] += counts.get(k, 0)
+    _arch_pretrained(dev, card)
+    return total
+
+
 def main():
     try:
         import torch
@@ -1936,15 +2281,19 @@ def main():
     synthetic_preprocess = phase_serve_synthetic(dev, smi)
     salt_unet = phase_salt_unet(dev, smi)
     phase_losses(dev)
+    arch = phase_arch(dev, smi)
     bench_counts = phase_bench(smi)
     preprocess["launches"] = (serve_preprocess + train_preprocess
                               + cv_on["preprocess"] + cv_off["preprocess"]
                               + meta["preprocess"] + synthetic_preprocess
                               + salt_unet["preprocess"]
-                              + bench_counts["preprocess"])
+                              + bench_counts["preprocess"]
+                              + arch["preprocess"])
     sort["launches"] = (train_sort + cv_on["sort"] + meta["sort"]
-                        + salt_unet["sort"] + bench_counts["sort"])
-    conv["launches"] = serve_conv + cv_on["conv"] + ab_launches
+                        + salt_unet["sort"] + bench_counts["sort"]
+                        + arch["sort"])
+    conv["launches"] = (serve_conv + cv_on["conv"] + ab_launches
+                        + arch["conv"])
     for key, count in probe_launches.items():
         probes[key]["launches"] = count
     log("launches", preprocess_serve=serve_preprocess,
@@ -1953,11 +2302,13 @@ def main():
         preprocess_metadata=meta["preprocess"],
         preprocess_serve_synthetic=synthetic_preprocess,
         preprocess_salt_unet=salt_unet["preprocess"],
-        preprocess_bench=bench_counts["preprocess"], sort_train=train_sort,
+        preprocess_bench=bench_counts["preprocess"],
+        preprocess_arch=arch["preprocess"], sort_train=train_sort,
         sort_cv=cv_on["sort"], sort_metadata=meta["sort"],
         sort_salt_unet=salt_unet["sort"], sort_bench=bench_counts["sort"],
-        conv_serve=serve_conv,
-        conv_cv=cv_on["conv"], conv_ab=ab_launches, **probe_launches)
+        sort_arch=arch["sort"], conv_serve=serve_conv,
+        conv_cv=cv_on["conv"], conv_ab=ab_launches, conv_arch=arch["conv"],
+        **probe_launches)
     print(json.dumps({"kernels": [
         preprocess, sort, conv, probes["conv128"], probes["conv64p"],
         probes["matmul"], probes["conv64p_v2"]]}), flush=True)

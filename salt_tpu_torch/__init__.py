@@ -15,9 +15,12 @@ under the same name:
 - ``salt_tpu_torch.losses``    the Lovász hinge / softmax, stable BCE, dice
                                and the mixed dice losses, the focal loss
 - ``salt_tpu_torch.metrics``   IoU / IOUT
-- ``salt_tpu_torch.models``    UNetResNet (ResNet 18/34 encoder, scSE decoder,
-                               hypercolumn head), the scratch SaltUNet and
-                               SaltLinkNet, and the flax-checkpoint bridge
+- ``salt_tpu_torch.models``    the U-Net (ResNet 18-152, SE-ResNet,
+                               SE-ResNeXt or DenseNet encoder, scSE decoder,
+                               hypercolumn head), the depth-gated U-Net, the
+                               scratch SaltUNet and SaltLinkNet, the
+                               flax-checkpoint bridge and the pretrained
+                               encoder import
 - ``salt_tpu_torch.train``     ``SegmentationRunner`` (train, eval and predict
                                steps), train state, callbacks, the fit loop,
                                the throughput probes

@@ -87,7 +87,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     The fused kernel moves the buffer by ``m * var * n / (n - 1)`` (the
     unbiased variance of n values per channel); the biased variance it
     normalised with comes back from its ``1 / sqrt(var + eps)``, and
-    ``m * var / (n - 1)`` is taken off again. The buffer is changed
+    ``m * var / (n - 1)`` is taken off again (with one value a channel
+    the buffer is set from its value before the call). The buffer is changed
     through ``.data``: autograd saved it, but the training backward does
     not read it. ``num_batches_tracked`` stays 0 (the momentum is fixed,
     so nothing reads it)."""
@@ -95,13 +96,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        n = x.numel() // x.shape[1]
+        old_var = self.running_var.detach().clone() if n == 1 else None
         y, _, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, self.running_mean, self.running_var,
             True, self.momentum, self.eps)
-        n = x.numel() // x.shape[1]
         with torch.no_grad():
             var = invstd.pow(-2).sub_(self.eps)
-            self.running_var.data.sub_(var, alpha=self.momentum / (n - 1))
+            if old_var is None:
+                self.running_var.data.sub_(var, alpha=self.momentum / (n - 1))
+            else:
+                # one value a channel: the fused update divides by n - 1
+                # and writes NaN; flax moves the buffer towards 0
+                self.running_var.data.copy_(old_var.mul_(1 - self.momentum)
+                                            .add_(var, alpha=self.momentum))
         return y
 
 
@@ -239,6 +247,21 @@ class DecoderBlock(nn.Module):
         return F.relu(self.ChannelSELayer_0(x) + self.SpatialSELayer_0(x))
 
 
+class DepthChannelExcitation(nn.Module):
+    """A per-channel gate from the scalar depth (``salt_tpu/models/
+    blocks.py`` :343-353): ``Dense_0`` maps the [B, 1] depth, cast to the
+    features' dtype, to C channels, then sigmoid, multiplied over H and
+    W."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(1, channels)
+
+    def forward(self, x: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        d = depth.reshape(depth.shape[0], 1).to(x.dtype)
+        return x * torch.sigmoid(self.Dense_0(d))[:, :, None, None]
+
+
 class Fp32HeadNet(nn.Module):
     """A segmentation network whose 1x1 head (the submodule named
     ``head_name``) runs in fp32 on an fp32 copy of its input, so the
@@ -255,6 +278,8 @@ class Fp32HeadNet(nn.Module):
     """
 
     head_name = "head"
+    #: whether ``forward`` takes the [B, 1] depth (``registry.takes_depth``)
+    takes_depth = False
 
     def __init__(self, dropout_2d: float = 0.0):
         super().__init__()
@@ -281,14 +306,29 @@ class Fp32HeadNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                infer: bool = False) -> torch.Tensor:
+                infer: bool = False,
+                depth: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, 3, H, W] -> fp32 logits [B, num_classes, H, W]; the infer
-        form with ``infer=True``."""
+        form with ``infer=True``. A depth model takes ``depth`` [B, 1] and
+        no other model does: either mistake raises ``TypeError``, as the
+        flax model's call does."""
+        if (depth is not None) != self.takes_depth:
+            raise TypeError(
+                f"{type(self).__name__}.forward() "
+                + ("requires the depth input" if self.takes_depth else
+                   "takes no depth input (execution.use_depth needs a "
+                   "depth model, UNetResNetWithDepth)"))
+        extra = (depth,) if self.takes_depth else ()
+        if x.device.type == "cpu":
+            # NCHW on the CPU: its channels-last kernels on one thread put
+            # a train step's fp32 gradients 4% of a leaf's max from
+            # float64 (tests/test_torch_train_step.py's input), NCHW 1e-3
+            x = x.contiguous()
         if self.autocast_dtype is None:
-            y = self._trunk(x.to(self.compute_dtype), generator, infer)
+            y = self._trunk(x.to(self.compute_dtype), generator, infer, *extra)
         else:
             with torch.autocast(x.device.type, dtype=self.autocast_dtype):
-                y = self._trunk(x.to(torch.float32), generator, infer)
+                y = self._trunk(x.to(torch.float32), generator, infer, *extra)
         head = getattr(self, self.head_name)
         return head(y.to(torch.promote_types(y.dtype, torch.float32)))
 

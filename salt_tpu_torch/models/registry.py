@@ -3,13 +3,17 @@
 (random weights and BN statistics, for the parity and serve checks) and
 ``init_flax_like`` (flax's default initializers, the start of training).
 
-The port builds ``UNetResNet``, ``SaltUNet`` and ``SaltLinkNet``; every
-other architecture the JAX package registers raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
-``model.pallas_conv`` selects the infer form's conv callable
-(:func:`infer_conv_fn`, the counterpart of ``_conv_fn``,
-``salt_tpu/models/registry.py:35-52``); it reaches the UNetResNet only,
-as the JAX package hands the scratch nets no conv callable.
+The port builds the U-Net family (``UNetResNet`` 18-152,
+``UNetSeResNet``, ``UNetSeResNetXt``, ``UNetDenseNet``), the depth-gated
+``UNetResNetWithDepth`` and the scratch ``SaltUNet`` / ``SaltLinkNet``,
+with the JAX builders' coercions of ``encoder_depth`` (:55-115); the
+five architectures of :data:`NOT_PORTED` raise ``NotImplementedError``
+naming the ROADMAP item that ports them. ``model.pallas_conv`` selects
+the infer form's conv callable (:func:`infer_conv_fn`, the counterpart
+of ``_conv_fn``, ``salt_tpu/models/registry.py:35-52``); it reaches the
+U-Nets only, as the JAX package hands the scratch nets no conv
+callable. The depth model takes no ``pool0``, ``hypercolumn_impl`` or
+``decoder_impl``, as its JAX builder passes none.
 """
 from __future__ import annotations
 
@@ -33,9 +37,14 @@ _MODE_CHOICES = {
 }
 
 #: architectures of the JAX registry the port does not build yet
-NOT_PORTED = ("UNetSeResNet", "UNetSeResNetXt", "UNetDenseNet",
-              "UNetResNetWithDepth", "LargeKernelMatters", "PSPNet",
-              "StackingFCN", "StackingFCNWithDepth", "EmptinessClassifier")
+NOT_PORTED = ("LargeKernelMatters", "PSPNet", "StackingFCN",
+              "StackingFCNWithDepth", "EmptinessClassifier")
+#: the U-Nets: their factory in ``models.unet``, the ``encoder_depth``s
+#: their JAX builder keeps and the one it takes otherwise (None: 0 -> 34)
+_UNETS = {"UNetResNet": (None, None),
+          "UNetSeResNet": ((50, 101, 152), 50),
+          "UNetSeResNetXt": ((50, 101), 50),
+          "UNetDenseNet": ((121, 161, 169, 201), 121)}
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -59,8 +68,10 @@ def build_model(cfg: ModelConfig) -> nn.Module:
     if cfg.architecture in NOT_PORTED:
         raise NotImplementedError(
             f"model.architecture={cfg.architecture!r} is not ported yet "
-            "(ROADMAP.md Queue A item 13, other architectures)")
-    if cfg.architecture not in ("UNetResNet", "SaltUNet", "SaltLinkNet"):
+            "(ROADMAP.md Queue A item 13: LargeKernelMatters, PSPNet, "
+            "StackingFCN, StackingFCNWithDepth, EmptinessClassifier)")
+    if cfg.architecture not in ("SaltUNet", "SaltLinkNet",
+                                "UNetResNetWithDepth", *_UNETS):
         raise KeyError(f"unknown architecture {cfg.architecture!r}")
     if cfg.quant_bits:
         raise NotImplementedError("model.quant_bits: int8 serving is not "
@@ -76,17 +87,33 @@ def build_model(cfg: ModelConfig) -> nn.Module:
         return SaltLinkNet(num_classes=cfg.num_classes,
                            n_filters=cfg.n_filters,
                            repeat_blocks=cfg.repeat_blocks).eval()
-    from salt_tpu_torch.models.unet import UNetResNet
-    model = UNetResNet(encoder_depth=cfg.encoder_depth or 34,
-                       num_classes=cfg.num_classes,
-                       use_hypercolumn=cfg.use_hypercolumn, pool0=cfg.pool0,
-                       pad_mode=cfg.conv_pad_mode,
-                       upsample_mode=cfg.upsample_mode,
-                       dropout_2d=cfg.dropout_2d,
-                       hypercolumn_impl=cfg.hypercolumn_impl,
-                       decoder_impl=cfg.decoder_impl,
-                       infer_conv=infer_conv_fn(cfg))
+    common = dict(num_classes=cfg.num_classes,
+                  use_hypercolumn=cfg.use_hypercolumn,
+                  dropout_2d=cfg.dropout_2d, pad_mode=cfg.conv_pad_mode,
+                  upsample_mode=cfg.upsample_mode,
+                  infer_conv=infer_conv_fn(cfg))
+    if cfg.architecture == "UNetResNetWithDepth":
+        from salt_tpu_torch.models.models_with_depth import \
+            UNetResNetWithDepth
+        return UNetResNetWithDepth(encoder_depth=cfg.encoder_depth or 34,
+                                   **common).eval()
+    from salt_tpu_torch.models import unet
+    keep, default = _UNETS[cfg.architecture]
+    if keep is None:
+        depth = cfg.encoder_depth or 34
+    else:
+        depth = cfg.encoder_depth if cfg.encoder_depth in keep else default
+    model = getattr(unet, cfg.architecture)(
+        encoder_depth=depth, pool0=cfg.pool0,
+        hypercolumn_impl=cfg.hypercolumn_impl,
+        decoder_impl=cfg.decoder_impl, **common)
     return model.eval()
+
+
+def takes_depth(architecture: str) -> bool:
+    """Architectures whose forward takes the [B, 1] depth (the JAX
+    registry's ``takes_depth``, :200-203)."""
+    return architecture in ("UNetResNetWithDepth", "StackingFCNWithDepth")
 
 
 @torch.no_grad()

@@ -13,6 +13,9 @@
   packages read; the full config is persisted as ``config.json`` so
   ``serve`` (either package's) rebuilds the trained network from the
   experiment dir alone.
+- With the runner's ``use_depth`` (``execution.use_depth`` or a depth
+  model), train, evaluate, predict and the CV loop hand each bundle's
+  depths to the steps (JAX ``pipeline/api.py:59-60,98,209-220``).
 - ``execution.resume`` continues from the ``last`` checkpoint (the
   port's own Adam state, or the optax Adam state of one the JAX package
   wrote), ``execution.fine_tuning`` restarts from ``best``.
@@ -60,8 +63,9 @@ def _first_fold(config: Config, bundle: DataBundle):
     return train_idx, valid_idx
 
 
-def _bundle_tuple(b: DataBundle) -> Tuple[np.ndarray, np.ndarray]:
-    return b.images, b.masks
+def _bundle_tuple(b: DataBundle, use_depth: bool
+                  ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    return b.images, b.masks, (b.depths if use_depth else None)
 
 
 def _lr_schedule_callbacks(t) -> List:
@@ -96,7 +100,9 @@ def _make_callbacks(config: Config, experiment: Experiment, name: str,
         # pipeline/api.py:91-100)
         image_monitor = [ValidationImageMonitor(
             experiment.directory + f"/validation_images_{name}", runner,
-            valid_b.images, valid_b.masks, image_nr=t.validation_image_nr,
+            valid_b.images, valid_b.masks,
+            valid_b.depths if runner.use_depth else None,
+            image_nr=t.validation_image_nr,
             image_every=t.validation_images_every)]
     return CallbackList([
         ExperimentTiming(),
@@ -166,9 +172,9 @@ def _fit_fold(config: Config, experiment: Experiment, name: str,
         logger.info("fine-tuning %s from persisted checkpoint", name)
         state = _load_best(runner, experiment, name)
     callbacks = _make_callbacks(config, experiment, name, runner, valid_b)
-    fit(runner, _bundle_tuple(train_b), _bundle_tuple(valid_b),
-        callbacks=callbacks, state=state, seed=config.execution.seed,
-        start_epoch=start_epoch)
+    fit(runner, _bundle_tuple(train_b, runner.use_depth),
+        _bundle_tuple(valid_b, runner.use_depth), callbacks=callbacks,
+        state=state, seed=config.execution.seed, start_epoch=start_epoch)
     return runner
 
 
@@ -208,6 +214,7 @@ def _predict_bundles(runner: SegmentationRunner, experiment: Experiment,
     over each of ``bundles``: fp32 [N, 2, 101, 101] each."""
     model = runner.restore(experiment.load_params(name))
     return [runner.predict_dataset(model, b.images,
+                                   b.depths if runner.use_depth else None,
                                    tta=runner.config.postpro.use_tta)
             for b in bundles]
 

@@ -15,6 +15,9 @@ With ``synthetic=N`` it serves N generated images (seed
 and without a checkpoint one model of the runner's seeded initial
 weights (``SegmentationRunner.init_state``), as the JAX package does.
 
+A depth model is fed depth 0 for every image, as the JAX package's
+serve does (:320-324): a served image carries no depth.
+
 Numerics: fold probabilities accumulate and threshold in fp32; the
 optional probability archive is stored float16.
 """
@@ -231,9 +234,13 @@ def serve(config: Config, checkpoint: str, images_dir: str,
     h_img, w_img = 101, 101
     chunk_size = max((chunk_size // bs) * bs, bs)
 
+    # the JAX package's serve feeds zero depths (no depth source)
+    zero_depths = (torch.zeros((bs, 1), dtype=torch.float32, device=dev)
+                   if runner.use_depth else None)
+
     def run_model(model, imgs_d: torch.Tensor) -> torch.Tensor:
         """[n_pad, h, w] uint8 -> salt-channel fp32 probabilities."""
-        return torch.cat([step(model, imgs_d[lo:lo + bs])[:, 1]
+        return torch.cat([step(model, imgs_d[lo:lo + bs], zero_depths)[:, 1]
                           for lo in range(0, imgs_d.shape[0], bs)])
 
     def chunks() -> Iterator[Tuple[int, np.ndarray]]:

@@ -383,11 +383,14 @@ class ValidationImageMonitor(Callback):
     ``image_nr`` validation images stacked."""
 
     def __init__(self, directory: str, runner, valid_images, valid_masks,
-                 image_nr: int = 8, image_every: int = 10):
+                 valid_depths=None, image_nr: int = 8,
+                 image_every: int = 10):
         self.directory = directory
         self.runner = runner
         self.images = np.asarray(valid_images)[:image_nr]
         self.masks = np.asarray(valid_masks)[:image_nr]
+        self.depths = (np.asarray(valid_depths)[:image_nr]
+                       if valid_depths is not None else None)
         self.image_every = image_every
         os.makedirs(directory, exist_ok=True)
 
@@ -397,7 +400,7 @@ class ValidationImageMonitor(Callback):
         from PIL import Image
         model = ctx["state"].model
         model.eval()                  # the JAX package predicts with train=False
-        probs = self.runner.predict_dataset(model, self.images)
+        probs = self.runner.predict_dataset(model, self.images, self.depths)
         rows = []
         for img, prob, mask in zip(self.images, probs, self.masks):
             gray = img.astype(np.uint8)

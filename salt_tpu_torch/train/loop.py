@@ -8,6 +8,10 @@ threshold sweep (counterpart of ``salt_tpu/train/loop.py`` :36-192).
 - Every step reseeds one ``torch.Generator`` on the runner's device from
   (seed, epoch, batch): the augmentation draws are reproducible, but
   they are not JAX's bits.
+- Depths ride with their images as [B, 1] fp32 when the runner's
+  ``use_depth`` is set: the data tuples are (images, masks, depths), and
+  a missing depth array feeds zeros, as in the JAX package (:42-61,
+  104-147).
 - Validation scores every image at all 21 sweep thresholds in one pass
   per batch and replays the reference's greedy selection on the [21]
   vector (reference: callbacks.py:503-513).
@@ -35,13 +39,26 @@ def step_seed(seed: int, epoch_id: int, batch_id: int) -> int:
     return (seed * 1_000_003 + epoch_id * 100_003 + batch_id) % (1 << 63)
 
 
+def _depth_batch(runner: SegmentationRunner, depths: Optional[np.ndarray],
+                 idx, bs: int) -> Optional[np.ndarray]:
+    """The [bs, 1] fp32 depths of ``depths[idx]`` zero-padded to ``bs``
+    (zeros without depths); None when the runner takes no depth."""
+    if not runner.use_depth:
+        return None
+    if depths is None:
+        return np.zeros((bs, 1), np.float32)
+    return pad_batch(np.asarray(depths[idx], np.float32).reshape(-1, 1), bs)
+
+
 def validate(runner: SegmentationRunner, state: TrainState,
              images: np.ndarray, masks: np.ndarray,
+             depths: Optional[np.ndarray] = None,
              compute_loss: bool = True) -> Dict[str, float]:
     """Full-validation metrics with the reference's threshold-sweep
     semantics: {'sum', 'iou', 'iout', 'threshold'}. The last batch is
-    padded with zero images to the inference batch size and the padding
-    dropped from the metrics (the loss keeps it, as in the JAX package)."""
+    padded with zero images (and zero depths) to the inference batch
+    size and the padding dropped from the metrics (the loss keeps it, as
+    in the JAX package)."""
     model = state.model
     model.eval()
     bs = runner.config.training.batch_size_inference
@@ -53,12 +70,14 @@ def validate(runner: SegmentationRunner, state: TrainState,
         count = min(bs, n - lo)
         img_d, msk_d = runner.device_batch(pad_batch(images[lo:lo + bs], bs),
                                            pad_batch(masks[lo:lo + bs], bs))
-        probs = runner.predict_step(model, img_d)
+        d = _depth_batch(runner, depths, slice(lo, lo + bs), bs)
+        d_d = None if d is None else runner.device_batch(d)[0]
+        probs = runner.predict_step(model, img_d, d_d)
         iou_t, iout_t = runner.metrics_step(probs[:, 1], msk_d, thresholds)
         iou_chunks.append(iou_t[:, :count])
         iout_chunks.append(iout_t[:, :count])
         if compute_loss:
-            losses.append(runner.val_loss_step(model, img_d, msk_d))
+            losses.append(runner.val_loss_step(model, img_d, msk_d, d_d))
     iou_all = torch.cat(iou_chunks, dim=1).cpu().numpy()      # [21, N]
     iout_all = torch.cat(iout_chunks, dim=1).cpu().numpy()
     iout_by_t = iout_all.mean(axis=1)
@@ -81,17 +100,18 @@ def validate(runner: SegmentationRunner, state: TrainState,
 
 
 def fit(runner: SegmentationRunner,
-        train_data: Tuple[np.ndarray, np.ndarray],
-        valid_data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        train_data: Tuple[np.ndarray, ...],
+        valid_data: Optional[Tuple[np.ndarray, ...]] = None,
         callbacks: Optional[CallbackList] = None,
         state: Optional[TrainState] = None,
         epochs: Optional[int] = None,
         seed: int = 1234,
         start_epoch: int = 0) -> Tuple[TrainState, list]:
     """Train on packed arrays: ``train_data`` / ``valid_data`` are
-    (images_u8 [N, 101, 101], masks_u8 [N, 101, 101])."""
+    (images_u8 [N, 101, 101], masks_u8 [N, 101, 101]) or those and the
+    depths [N] (or None)."""
     cfg = runner.config
-    images, masks = train_data
+    images, masks, depths = (*train_data, None)[:3]
     bs = min(cfg.training.batch_size_train, images.shape[0])
     epochs = epochs if epochs is not None else cfg.training.epochs
     callbacks = callbacks or CallbackList([])
@@ -120,12 +140,13 @@ def fit(runner: SegmentationRunner,
         def host_batches():
             for idx in batch_indices(images.shape[0], bs,
                                      cfg.execution.shuffle, host_rng):
-                yield images[idx], masks[idx]
+                d = _depth_batch(runner, depths, idx, len(idx))
+                yield (images[idx], masks[idx]) + (() if d is None else (d,))
 
-        for batch_id, (img_d, msk_d) in enumerate(
+        for batch_id, (img_d, msk_d, *d_d) in enumerate(
                 prefetch_to_device(host_batches(), runner.device_batch)):
             generator.manual_seed(step_seed(seed, epoch_id, batch_id))
-            loss = runner.train_step(state, img_d, msk_d, generator)
+            loss = runner.train_step(state, img_d, msk_d, generator, *d_d)
             epoch_losses.append(float(loss))
             ctx.update(state=state, batch_id=batch_id,
                        batch_loss=epoch_losses[-1])

@@ -24,11 +24,21 @@ run the infer form (``model(x, infer=True)``: the config's
 dispatch), training and :meth:`val_loss_step` the train form (literal
 concats, plain convs). Both read the one set of parameters on the device.
 
+Depth: ``use_depth`` is ``execution.use_depth`` or an architecture that
+takes the depth (``registry.takes_depth``), as in the JAX runner
+(:53-54). Every step then takes the images' depths [B, 1] (z / 1000)
+and hands them to the model, zeros where the caller has none, as the
+JAX package's loop, validation and serve feed them; the TTA step repeats
+them once per spec. ``use_depth`` with a model that takes no depth
+raises ``TypeError`` where a model is made, as JAX's ``init_state``
+does.
+
 Serving models are ``nn.Module``s in eval mode, cast to
-``training.dtype`` (the fp32 head aside), in channels_last memory,
-placed on ``device`` once by :meth:`init_model` / :meth:`restore`. A
-model being trained keeps fp32 parameters and computes in
-``training.dtype`` under autocast (:meth:`train_state`).
+``training.dtype`` (the fp32 head aside), in channels_last memory on the
+card (NCHW on the CPU, whose channels-last kernels lose fp32 accuracy on
+one thread), placed on ``device`` once by :meth:`init_model` /
+:meth:`restore`. A model being trained keeps fp32 parameters and
+computes in ``training.dtype`` under autocast (:meth:`train_state`).
 """
 from __future__ import annotations
 
@@ -42,11 +52,13 @@ from torch import nn
 from salt_tpu_torch.core.config import Config
 from salt_tpu_torch.core.device import resolve_device
 from salt_tpu_torch.core.experiment import load_flat_npz
+from salt_tpu_torch.core.logging import get_logger
 from salt_tpu_torch.data.pipeline import to_device
 from salt_tpu_torch.losses.api import get_loss_fn
 from salt_tpu_torch.models.convert import load_flax_flat
 from salt_tpu_torch.models.registry import (DTYPES, build_model,
-                                            init_flax_like, init_seeded)
+                                            init_flax_like, init_seeded,
+                                            takes_depth)
 from salt_tpu_torch.ops.augment import (AugmentParams, apply_augment,
                                         draw_augment_params)
 from salt_tpu_torch.ops.preprocess import (add_depth_channels, crop_to_target,
@@ -71,6 +83,11 @@ class SegmentationRunner:
         self.config = config
         self.dtype = DTYPES[config.training.dtype]
         ex = config.execution
+        self.use_depth = (ex.use_depth
+                          or takes_depth(config.model.architecture))
+        self._memory_format = (torch.channels_last
+                               if self.device.type == "cuda"
+                               else torch.contiguous_format)
         # as in the JAX runner: resize_and_pad pads, every other mode resizes
         self._pp = dict(pad_method=ex.pad_method, loader_mode=ex.loader_mode,
                         resize_size=ex.resize_target_size,
@@ -85,13 +102,23 @@ class SegmentationRunner:
             and self._img_hw == (101, 101) and self._net_hw == (128, 128))
 
     # -- models -----------------------------------------------------------
+    def build(self) -> nn.Module:
+        """The configured architecture, fp32, in eval mode."""
+        model = build_model(self.config.model)
+        if self.use_depth and not model.takes_depth:
+            raise TypeError(
+                f"execution.use_depth=true: {self.config.model.architecture}"
+                " takes no depth input (a depth model is "
+                "UNetResNetWithDepth)")
+        return model
+
     def place(self, model: nn.Module) -> nn.Module:
         model.set_compute_dtype(self.dtype)
-        return model.to(self.device, memory_format=torch.channels_last).eval()
+        return model.to(self.device, memory_format=self._memory_format).eval()
 
     def init_model(self, seed: int = 1234) -> nn.Module:
         """A seeded model on the device (``models.registry.init_seeded``)."""
-        return self.place(init_seeded(build_model(self.config.model), seed))
+        return self.place(init_seeded(self.build(), seed))
 
     def restore(self, checkpoint: Union[str, Dict[str, np.ndarray]]
                 ) -> nn.Module:
@@ -99,7 +126,7 @@ class SegmentationRunner:
         arrays), moved to the device once."""
         if isinstance(checkpoint, str):
             checkpoint = load_flat_npz(checkpoint)
-        model = build_model(self.config.model)
+        model = self.build()
         load_flax_flat(model, checkpoint)
         return self.place(model)
 
@@ -110,26 +137,48 @@ class SegmentationRunner:
         return get_loss_fn(self.config.training.loss)
 
     def train_state(self, model: nn.Module) -> TrainState:
-        """``model`` on the device for training: fp32 parameters in
-        channels_last memory computing in ``training.dtype``, with the
+        """``model`` on the device for training: fp32 parameters
+        (channels_last on the card) computing in ``training.dtype``, with the
         JAX package's Adam over them."""
-        if self.config.execution.use_depth:
-            raise NotImplementedError(
-                "execution.use_depth: the depth-taking models are not ported "
-                "yet (ROADMAP.md Queue A item 13, other architectures)")
-        model = model.to(self.device, memory_format=torch.channels_last)
+        model = model.to(self.device, memory_format=self._memory_format)
         model.set_training_precision(self.dtype)
         t = self.config.training
         return TrainState(model, make_optimizer(model, t.lr, t.l2_reg_conv))
 
     def init_state(self, seed: int = 1234) -> TrainState:
-        """A fresh train state from flax's default initializers, seeded."""
+        """A fresh train state from flax's default initializers, seeded;
+        with ``model.pretrained`` the encoder is then grafted from
+        ``model.pretrained_weights_path`` (the JAX runner's
+        ``_graft_pretrained``, :94-122)."""
+        model = init_flax_like(self.build(), seed)
         if self.config.model.pretrained:
-            raise NotImplementedError(
-                "model.pretrained: grafting pretrained encoder weights is "
-                "not ported yet (ROADMAP.md Queue A item 13)")
-        return self.train_state(init_flax_like(build_model(self.config.model),
-                                               seed))
+            self._graft_pretrained(model)
+        return self.train_state(model)
+
+    def _graft_pretrained(self, model: nn.Module) -> None:
+        from salt_tpu_torch.models.torch_import import (convert_encoder,
+                                                        graft_encoder,
+                                                        load_state_dict)
+        path = self.config.model.pretrained_weights_path
+        if not path:
+            raise ValueError(
+                "model.pretrained=True requires model.pretrained_weights_path"
+                " — a torch .pth/.pt or converted .npz encoder checkpoint "
+                "(nothing is downloaded)")
+        n = graft_encoder(model, *convert_encoder(load_state_dict(path)))
+        get_logger().info("grafted pretrained encoder from %s (%d arrays)",
+                          path, n)
+
+    def depth_input(self, depths: Optional[torch.Tensor],
+                    b: int) -> Optional[torch.Tensor]:
+        """The model's depth argument: None without ``use_depth``, else
+        ``depths`` as [B, 1] fp32 on the device (zeros when None)."""
+        if not self.use_depth:
+            return None
+        if depths is None:
+            return torch.zeros((b, 1), dtype=torch.float32,
+                               device=self.device)
+        return depths.reshape(b, 1).to(self.device, torch.float32)
 
     def device_batch(self, *arrays: np.ndarray):
         """Host arrays -> device tensors (pinned, asynchronous on CUDA)."""
@@ -158,13 +207,15 @@ class SegmentationRunner:
         return x.permute(0, 3, 1, 2), one_hot_target(m)
 
     def update(self, state: TrainState, x: torch.Tensor, y: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               depths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Forward in train mode, the loss over NHWC logits, backward, one
         Adam step; BatchNorm statistics move in the forward. Returns the
         loss (a 0-d tensor on the device)."""
         model = state.model
         model.train()
-        logits = model(x, generator)
+        logits = model(x, generator,
+                       depth=self.depth_input(depths, x.shape[0]))
         loss = self.loss_fn(logits.permute(0, 2, 3, 1), y)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -173,18 +224,20 @@ class SegmentationRunner:
         return loss.detach()
 
     def train_step(self, state: TrainState, images_u8: torch.Tensor,
-                   masks_u8: torch.Tensor,
-                   generator: torch.Generator) -> torch.Tensor:
-        """One training step on uint8 [B, 101, 101] images and masks; the
-        augmentation (and any dropout) draws from ``generator``."""
+                   masks_u8: torch.Tensor, generator: torch.Generator,
+                   depths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One training step on uint8 [B, 101, 101] images and masks (and
+        their depths); the augmentation (and any dropout) draws from
+        ``generator``."""
         b, h, w = images_u8.shape
         params = draw_augment_params(generator, b, h, w)
         x, y = self._train_inputs(images_u8, masks_u8, params)
-        return self.update(state, x, y, generator)
+        return self.update(state, x, y, generator, depths)
 
     @torch.no_grad()
     def val_loss_step(self, model: nn.Module, images_u8: torch.Tensor,
-                      masks_u8: torch.Tensor) -> torch.Tensor:
+                      masks_u8: torch.Tensor,
+                      depths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Validation loss in network space on inference-preprocessed
         batches (the preprocess kernel on the card); ``model`` in eval
         mode, in the train form as in the JAX runner."""
@@ -195,7 +248,8 @@ class SegmentationRunner:
         else:
             m = resize_hw(m, self._net_hw)
         y = one_hot_target((m > 0.5).to(torch.float32))
-        return self.loss_fn(model(x).permute(0, 2, 3, 1), y)
+        logits = model(x, depth=self.depth_input(depths, x.shape[0]))
+        return self.loss_fn(logits.permute(0, 2, 3, 1), y)
 
     @staticmethod
     def metrics_step(probs_salt: torch.Tensor, gt: torch.Tensor,
@@ -241,25 +295,29 @@ class SegmentationRunner:
         return resize_hw(probs, self._img_hw)
 
     @torch.no_grad()
-    def predict_step(self, model: nn.Module,
-                     images_u8: torch.Tensor) -> torch.Tensor:
+    def predict_step(self, model: nn.Module, images_u8: torch.Tensor,
+                     depths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """uint8 [B, 101, 101] -> fp32 probabilities [B, 2, 101, 101]."""
-        logits = model(self._infer_inputs(images_u8), infer=True)
+        logits = model(self._infer_inputs(images_u8), infer=True,
+                       depth=self.depth_input(depths, images_u8.shape[0]))
         return self._to_image_space(torch.sigmoid(logits.float()))
 
     @torch.no_grad()
-    def predict_tta_step(self, model: nn.Module,
-                         images_u8: torch.Tensor) -> torch.Tensor:
+    def predict_tta_step(self, model: nn.Module, images_u8: torch.Tensor,
+                         depths: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
         """All TTA specs of the batch in ONE forward pass of [T*B]: the
         uint8 101x101 images are transformed BEFORE the pad (the pad is
         asymmetric), the 128x128 probabilities inverse-transformed and
-        aggregated before the crop."""
+        aggregated before the crop; the depths repeat once per spec."""
         pp = self.config.postpro
         specs = build_tta_specs(pp.tta_flip_ud, pp.tta_flip_lr,
                                 pp.tta_rotation, pp.tta_color_shift_runs)
         b = images_u8.shape[0]
         big = torch.cat([tta_transform(images_u8, s) for s in specs], dim=0)
-        logits = model(self._infer_inputs(big), infer=True)
+        d = self.depth_input(depths, b)
+        logits = model(self._infer_inputs(big), infer=True,
+                       depth=None if d is None else d.repeat(len(specs), 1))
         probs = torch.sigmoid(logits.float())                 # [T*B,2,H,W]
         outs = [tta_inverse_transform(probs[i * b:(i + 1) * b], s)
                 for i, s in enumerate(specs)]
@@ -267,11 +325,12 @@ class SegmentationRunner:
         return self._to_image_space(agg)
 
     def predict_dataset(self, model: nn.Module, images: np.ndarray,
+                        depths: Optional[np.ndarray] = None,
                         batch_size: int = 0, tta: bool = False,
                         chunk: int = 2048) -> np.ndarray:
-        """uint8 [N, 101, 101] -> fp32 [N, 2, 101, 101]. Ragged chunks are
-        padded with zero images to a batch multiple and the padding is
-        dropped afterwards."""
+        """uint8 [N, 101, 101] (and depths [N]) -> fp32 [N, 2, 101, 101].
+        Ragged chunks are padded with zero images (and zero depths) to a
+        batch multiple and the padding is dropped afterwards."""
         step = self.predict_tta_step if tta else self.predict_step
         bs = batch_size or self.config.training.batch_size_inference
         n = images.shape[0]
@@ -283,8 +342,14 @@ class SegmentationRunner:
             count = min(chunk, n - lo)
             batch = pad_batch(images[lo:lo + count], bs)
             imgs = torch.from_numpy(batch).to(self.device)
-            probs = torch.cat([step(model, imgs[i:i + bs])
-                               for i in range(0, imgs.shape[0], bs)])
+            d = None
+            if self.use_depth and depths is not None:
+                d = torch.from_numpy(pad_batch(
+                    np.asarray(depths[lo:lo + count], np.float32)
+                    .reshape(-1, 1), bs)).to(self.device)
+            probs = torch.cat([
+                step(model, imgs[i:i + bs], None if d is None else d[i:i + bs])
+                for i in range(0, imgs.shape[0], bs)])
             outs.append(probs[:count].cpu().numpy())
         return np.concatenate(outs, axis=0)
 

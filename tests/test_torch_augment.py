@@ -26,6 +26,10 @@ from torch_train_parity import jax_augment_params
 from salt_tpu.ops import augment as jaug
 from salt_tpu_torch.ops import augment as taug
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 ATOL = 1e-5          # per op, same coordinates
 ATOL_POLICY = 5e-5   # whole policy: a coordinate ulp x an image step
 

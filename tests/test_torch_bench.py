@@ -15,6 +15,10 @@ import torch
 
 from salt_tpu_torch.tools import profiling
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 CUDA = torch.autograd.DeviceType.CUDA
 CPU = torch.autograd.DeviceType.CPU
 LINE_KEYS = {"device", "flagship_tta_bf16", "flagship_train",

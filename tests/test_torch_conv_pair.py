@@ -19,6 +19,10 @@ from salt_tpu_torch.ops import conv_kernel
 from salt_tpu_torch.ops.conv_pair import (conv3x3_pair, conv3x3_packed,
                                          make_conv_fn, pack_weight, route)
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 DN = ("NHWC", "HWIO", "NHWC")
 
 

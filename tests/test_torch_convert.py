@@ -15,6 +15,10 @@ from salt_tpu_torch.models.convert import (from_flax_flat, load_flax_flat,
                                            to_flax_flat)
 from salt_tpu_torch.models.registry import build_model
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def jax_checkpoint(tmp_path_factory):

@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 

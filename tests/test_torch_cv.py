@@ -17,6 +17,7 @@ import shutil
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from torch_parity import flagship_config, numpy_jax_variables, port_config
 
@@ -29,6 +30,10 @@ from salt_tpu_torch import cli
 from salt_tpu_torch.core.experiment import Experiment
 from salt_tpu_torch.data.bundle import synthetic_bundle
 from salt_tpu_torch.pipeline import api
+
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 N_TRAIN = 8
 N_TEST = 6

@@ -29,6 +29,10 @@ from salt_tpu_torch.train import callbacks as tcb
 from salt_tpu_torch.train.loop import validate
 from salt_tpu_torch.train.steps import SegmentationRunner
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def test_kfold_and_batch_order_match_jax():
     z = np.random.RandomState(0).randint(50, 959, 97)

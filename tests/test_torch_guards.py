@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -29,7 +33,8 @@ for needed in ("pipeline.serving", "ops.preprocess_kernel", "ops.sort_kernel",
                "ops.matmul_kernel", "tools.conv_probe", "tools.conv_probe2",
                "tools.ab_conv", "tools.preprocess_ab", "data.metadata",
                "models.salt_unet", "losses.dice", "losses.focal",
-               "train.throughput", "tools.bench", "tools.profiling"):
+               "train.throughput", "tools.bench", "tools.profiling",
+               "models.models_with_depth", "models.torch_import"):
     assert "salt_tpu_torch." + needed in names, names
 for name in names:
     importlib.import_module(name)
@@ -39,6 +44,7 @@ assert not bad, bad
 print(len(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -16,6 +16,10 @@ from salt_tpu.losses.api import get_loss_fn as jax_get_loss_fn
 from salt_tpu_torch.losses import focal
 from salt_tpu_torch.losses.api import get_loss_fn
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 NAMES = ["dice", "mixed_dice_bce", "mixed_dice_ce", "focal",
          "focal_weighted"]

@@ -25,6 +25,10 @@ from salt_tpu.ops.bitonic import lovasz_hinge_flat_bitonic
 from salt_tpu_torch.losses import lovasz as tl
 from salt_tpu_torch.losses.api import get_loss_fn
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 

@@ -21,6 +21,10 @@ from salt_tpu_torch.core.config import default_config
 from salt_tpu_torch.data import bundle
 from salt_tpu_torch.data import metadata
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 # seed 3 gives empty masks among the 6 train images
 N_TRAIN, N_TEST, SEED = 6, 3, 3
 

@@ -17,6 +17,10 @@ from salt_tpu.ops.preprocess import preprocess_inference as jax_preprocess
 from salt_tpu_torch.models.convert import load_flax_flat
 from salt_tpu_torch.models.registry import build_model, init_seeded
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 MODES = [("same", "half_pixel"), ("reference", "align_corners")]
 
 
@@ -78,6 +82,9 @@ def test_registry_validates_and_names_unported():
     cfg.model.architecture = "SaltUNet"          # ported: it builds
     assert type(build_model(cfg.model)).__name__ == "SaltUNet"
     cfg = default_config()
-    cfg.model.encoder_depth = 50
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.model.encoder_depth = 50                 # ported: Bottleneck blocks
+    assert type(build_model(cfg.model).encoder.layer1_0).__name__ == \
+        "Bottleneck"
+    cfg.model.encoder_depth = 77                 # no such ResNet, as in JAX
+    with pytest.raises(KeyError):
         build_model(cfg.model)

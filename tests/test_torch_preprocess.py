@@ -14,6 +14,10 @@ from salt_tpu.ops import preprocess as jpre
 from salt_tpu_torch.ops import preprocess as tpre
 from salt_tpu_torch.ops import preprocess_kernel
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def _images(b, seed):
     return (np.random.RandomState(seed).rand(b, 101, 101) * 255).astype(np.uint8)

@@ -24,6 +24,10 @@ from salt_tpu_torch.ops.probe_conv import (WPAD, WPAD2, conv64p_plain,
                                            conv128_plain, pack_pair_weights,
                                            pack_pairs, valid_conv_plain)
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 B, H, W = 2, 32, 32
 
 pallas_conv = load_tool("pallas_conv")

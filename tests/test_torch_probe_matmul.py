@@ -15,6 +15,10 @@ from torch_parity import bf16_ulp_rule, load_tool
 from salt_tpu_torch.ops import matmul_kernel
 from salt_tpu_torch.ops.probe_conv import matmul_plain
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 pallas_conv = load_tool("pallas_conv")
 
 

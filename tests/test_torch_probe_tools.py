@@ -22,6 +22,10 @@ from salt_tpu_torch.ops.conv_pair import SCOPE_ENV, make_conv_fn
 from salt_tpu_torch.tools import (ab_conv, conv_probe, conv_probe2,
                                   conv_valid_ab, matmul_ab, preprocess_ab)
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def test_conv_probe_on_the_cpu(capsys):
     conv_probe.main(["--device", "cpu", "--batch", "1", "--size", "32",

@@ -42,6 +42,10 @@ from salt_tpu_torch.models.convert import from_flax_flat, to_flax_flat
 from salt_tpu_torch.pipeline import api
 from salt_tpu_torch.train.steps import SegmentationRunner
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 LR = 3e-3
 TOL = dict(rtol=1e-5, atol=1e-5)
 

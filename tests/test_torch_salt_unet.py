@@ -17,6 +17,10 @@ from salt_tpu.models.registry import build_model as jax_build_model
 from salt_tpu_torch.models.convert import load_flax_flat, to_flax_flat
 from salt_tpu_torch.models.registry import build_model
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 

@@ -13,6 +13,7 @@ from types import SimpleNamespace
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from torch_parity import (flagship_config, port_config, seeded_images,
                           seeded_jax_variables)
@@ -24,6 +25,10 @@ from salt_tpu.pipeline.serving import serve as jax_serve
 from salt_tpu.train.steps import SegmentationRunner as JaxRunner
 from salt_tpu_torch.pipeline.serving import serve
 from salt_tpu_torch.train.steps import SegmentationRunner
+
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 N_IMAGES = 6
 BATCH = 4

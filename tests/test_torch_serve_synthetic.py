@@ -14,6 +14,7 @@ from types import SimpleNamespace
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from torch_parity import numpy_jax_variables, port_config
 
@@ -21,6 +22,10 @@ from salt_tpu.core.config import default_config as jax_default_config
 from salt_tpu.core.experiment import Experiment
 from salt_tpu.models.registry import build_model as jax_build_model
 from salt_tpu.ops.rle import run_length_decoding
+
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 N = 8
 SMALL = ["--set", "model.architecture=SaltUNet", "--set", "model.n_filters=4",

@@ -7,6 +7,7 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from torch_parity import seeded_images
 
@@ -15,6 +16,10 @@ from salt_tpu_torch.core.experiment import checkpoint_path, save_flat_npz
 from salt_tpu_torch.models.convert import to_flax_flat
 from salt_tpu_torch.models.registry import build_model, init_seeded
 from salt_tpu_torch.pipeline import serving
+
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 
 def _small_config():

@@ -24,6 +24,10 @@ from salt_tpu_torch.models.convert import load_flax_flat, to_flax_flat
 from salt_tpu_torch.models.registry import build_model
 from salt_tpu_torch.ops import conv_kernel
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 MODES = [("same", "half_pixel"), ("reference", "align_corners")]
 
 

@@ -16,6 +16,10 @@ from salt_tpu.ops.pallas_sort import sort_desc_pallas, sort_desc_with_labels
 from salt_tpu_torch.ops import sort_kernel
 from salt_tpu_torch.ops.bitonic import bitonic_sort_desc
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def _inputs(b, p, ties, seed=0):
     rng = np.random.RandomState(seed)

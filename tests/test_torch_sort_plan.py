@@ -22,6 +22,10 @@ from salt_tpu_torch.ops.bitonic import (DST_OUTPUT, OP_CHUNK, SRC_INPUT,
                                         bitonic_sort_desc, launch_stages,
                                         run_plan)
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 LENGTHS = (128, 1024, 4096, 8192, 32768)
 #: (P, chunk): every plan the wrapper may take (the chunks differ only
 #: where P is longer than the smaller one)

@@ -46,6 +46,10 @@ from salt_tpu_torch.models.registry import build_model
 from salt_tpu_torch.train.state import TrainState, make_optimizer
 from salt_tpu_torch.train.steps import SegmentationRunner
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 B = 2
 LR = 1e-4
 

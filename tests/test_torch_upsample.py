@@ -9,6 +9,10 @@ import torch
 from salt_tpu.models.blocks import upsample2x as jax_upsample2x
 from salt_tpu_torch.models.blocks import reference_pad, upsample2x
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("mode", ["half_pixel", "align_corners"])
 @pytest.mark.parametrize("factor", [2, 4, 8, 16])

@@ -5,12 +5,21 @@ Inputs and weights come from numpy seeds and cross between the packages
 as numpy arrays; JAX runs on the CPU (tests/conftest.py).
 """
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
 
 from salt_tpu.core.config import default_config
 from salt_tpu.core.experiment import _path_str
+from salt_tpu.models.registry import build_model as jax_build_model
+from salt_tpu.models.registry import takes_depth
+from salt_tpu_torch.models.convert import to_flax_flat
+from salt_tpu_torch.models.registry import build_model
+
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 
 def flagship_config(depth=18, pad_mode="same", upsample_mode="half_pixel",
@@ -32,6 +41,31 @@ def port_config(jax_cfg):
     return load_config(None, {f"{section}.{name}": value
                               for section, fields in jax_cfg.to_dict().items()
                               for name, value in fields.items()})
+
+
+def arch_configs(arch, depth, **model):
+    """(JAX config, port config) of ``arch`` at ``encoder_depth``
+    ``depth``, with the other ``model`` fields given."""
+    cfg = flagship_config(depth)
+    cfg.model.architecture = arch
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    return cfg, port_config(cfg)
+
+
+def check_keys_and_shapes(arch, depth):
+    """The port model's flat flax keys and shapes are those of the JAX
+    registry's model (traced, nothing compiled)."""
+    cfg, pcfg = arch_configs(arch, depth)
+    shapes = jax_variable_shapes(jax_build_model(cfg.model, "float32"),
+                                 depth=takes_depth(arch))
+    leaves, _ = jax.tree_util.tree_flatten_with_path(shapes)
+    want = {"/".join(_path_str(p) for p in path): tuple(leaf.shape)
+            for path, leaf in leaves}
+    got = {k: v.shape for k, v in to_flax_flat(
+        build_model(pcfg.model)).items()}
+    assert sorted(got) == sorted(want)
+    assert got == want
 
 
 def flatten(variables):
@@ -71,16 +105,23 @@ def seeded_jax_variables(model, seed=0):
     return unflatten_like(flat, variables), flat
 
 
-def numpy_jax_variables(model, seed=0):
-    """The variable tree of ``model`` (its shapes traced with
-    ``jax.eval_shape``: no flax init runs, which takes tens of seconds
-    eagerly on the CPU) filled from numpy seed ``seed``: conv and dense
-    kernels N(0, 1 / fan_in) (flax's lecun_normal scale), the BatchNorm
-    leaves and biases as :func:`seeded_jax_variables` draws them.
-    Returns (variables, flat)."""
-    shapes = jax.eval_shape(lambda: model.init(
+def jax_variable_shapes(model, depth=False):
+    """``model``'s variable tree as shapes, traced with ``jax.eval_shape``
+    (no flax init runs, which takes tens of seconds eagerly on the CPU);
+    ``depth``: the model also takes the [B, 1] depth."""
+    extra = (jnp.zeros((2, 1), jnp.float32),) if depth else ()
+    return jax.eval_shape(lambda: model.init(
         jax.random.PRNGKey(0), jnp.zeros((2, 128, 128, 3), jnp.float32),
-        train=False))
+        *extra, train=False))
+
+
+def numpy_jax_variables(model, seed=0, depth=False):
+    """The variable tree of ``model`` (:func:`jax_variable_shapes`)
+    filled from numpy seed ``seed``: conv and dense kernels N(0, 1 /
+    fan_in) (flax's lecun_normal scale), the BatchNorm leaves and biases
+    as :func:`seeded_jax_variables` draws them. Returns (variables,
+    flat)."""
+    shapes = jax_variable_shapes(model, depth)
     leaves, _ = jax.tree_util.tree_flatten_with_path(shapes)
     rng = np.random.RandomState(seed)
     flat = {}

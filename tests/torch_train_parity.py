@@ -10,6 +10,10 @@ import torch
 
 from salt_tpu_torch.ops.augment import AugmentParams
 
+# one intra-op thread a test process: the suite runs in parallel workers,
+# and a thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def jax_augment_params(key, b, h, w):
     """The port's parameters for the draws ``augment_batch(key, ...)``
