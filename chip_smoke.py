@@ -4,7 +4,8 @@ UNetResNet34 at full width, end to end, on its paths — hflip-TTA
 ``serve`` (from checkpoints and ``--synthetic``), ``train`` and the
 K-fold CV loop (``train-evaluate-predict-cv`` / ``evaluate-predict-cv``)
 — the scratch SaltUNet's train, resume and serve, the other losses, the
-U-Net on the other encoders and the depth net, and the port's bench.
+U-Net on the other encoders and the depth net, LargeKernelMatters and
+PSPNet, int8 serving and its quality gate, and the port's bench.
 
     python3 chip_smoke.py
 
@@ -51,6 +52,10 @@ Phases (each raises on failure; the script then exits non-zero):
                 120-image test set), then ``cli evaluate-predict-cv`` with
                 "off" on the same experiment directory: the same fold
                 scores and submission under the threshold-margin rule;
+                then the int8 gate: ``evaluate-predict-cv --set
+                model.quant_bits=8`` (an ``int8_gate_*.json`` a fold) and
+                ``serve --int8 --checkpoint`` of that experiment (its
+                provenance "measured");
 11. metadata  — a TGS-layout tree of 48 train and 16 test PNGs and
                 depths.csv through ``cli prepare-metadata``, then ``cli
                 train --epochs 1`` from the metadata.csv it wrote;
@@ -67,7 +72,7 @@ Phases (each raises on failure; the script then exits non-zero):
                 DenseNet-121 and ResNet-50 encoders and
                 UNetResNetWithDepth-34, full width, bf16, conv kernel
                 "on", seeded weights: fp32 logits on the card against the
-                CPU (batch 2), hflip-TTA masks of 64 synthetic images
+                CPU (batch 2), hflip-TTA masks of 32 synthetic images
                 against the CPU's fp32 under the margin rule, ``serve
                 --synthetic 480`` at batch 24 (images/s; the preprocess
                 and conv kernels' launches against the JAX route's
@@ -75,11 +80,28 @@ Phases (each raises on failure; the script then exits non-zero):
                 the depth net (the bundle's depths), 2 epochs of 5 steps
                 at batch 24; a pretrained se_resnet50 ``.npz`` grafted
                 into UNetSeResNet-50 and one train step;
-16. bench     — ``python -m salt_tpu_torch.tools.bench`` at reduced
-                windows (it prints its JSON line).
-Device times come from whole profiler sessions (``tools/profiling.py``:
-the profiler loses events), and a kernel's or a library call's time
-under its bound fails the run.
+16. arch2     — LargeKernelMatters-34 and PSPNet-34 through the arch
+                phase's checks (card vs CPU, 64 TTA masks, ``serve
+                --synthetic 480`` at 24, a TTA step profiled) and ``cli
+                train-evaluate-predict-cv`` (96 images, 2 folds), PSPNet
+                trained 2 epochs of 5 steps under Lovász; the emptiness
+                classifier and the stacking heads (18 inputs, with and
+                without depth) card vs CPU;
+17. int8      — ``model.quant_bits=8``: each conv shape of the flagship's
+                int8 route at batch 24 and 64 (quantize bit for bit, the
+                conv within one bf16 ulp of the plain versions), timed at
+                64 by CUDA events beside its bound and cuDNN's bf16 conv;
+                the int8 conv
+                launches per forward against the route's sites;
+                ``serve --int8 --synthetic 2048`` at 24 beside bf16;
+18. bench     — ``python -m salt_tpu_torch.tools.bench`` at reduced
+                windows (it prints its JSON line; ``flagship_tta_int8`` at
+                64 beside bf16).
+Device times of the first seven kernels come from whole profiler
+sessions (``tools/profiling.py``: the profiler loses events), the int8
+calls' from CUDA events over back-to-back calls, and a kernel's or a
+library call's time under its bound fails the run, after
+``MEASURE_TRIES`` measurements that all read under it.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after (the probe harnesses' and the A/B's too). The script then
 prints one JSON line of kernel records and,
@@ -157,12 +179,25 @@ def device_ms(fn, match="", iters=50, launches_per_call=1):
     return kernel_ms(fn, match, iters, launches_per_call if match else None)
 
 
+#: measurements of one kernel taken in all while one reads under its bound
+MEASURE_TRIES = 3
+
+
+def under_bound(bound_ms, **times):
+    """The times of ``times`` (ms; None for an absent library call) under
+    ``bound_ms``, the least time the card could take for the work."""
+    return {k: v for k, v in times.items() if v is not None and v < bound_ms}
+
+
 def check_bound(what, bound_ms, **times):
-    """Raise when a time of ``times`` (ms; None for an absent library
-    call) is under ``bound_ms``, the least time the card could take for
-    the work: such a reading is a fault of the measurement."""
-    under = {k: v for k, v in times.items()
-             if v is not None and v < bound_ms}
+    """Raise when a time of ``times`` is under ``bound_ms``: such a
+    reading is a fault of the measurement. The profiler can lose a
+    session's events and read low (in one run a bf16 probe read 0.0705 ms
+    under its 0.1042 ms bound, where the other runs read 0.147 ms), so
+    the callers measure again, :data:`MEASURE_TRIES` times in all, while
+    a reading is under the bound, and log how many tries they took; a
+    kernel that reads under its bound every time fails the run."""
+    under = under_bound(bound_ms, **times)
     if under:
         raise AssertionError(f"{what}: {under} under the {bound_ms:.5f} ms "
                              "bound")
@@ -272,23 +307,26 @@ def phase_kernel(dev):
         def plain():
             return preprocess_inference(imgs, "edge", dtype)
 
-        # device time per call from the profiler; back-to-back CUDA events
-        # measure the host's enqueue rate for a kernel this short
-        ms = device_ms(kernel, match="preprocess_inference_kernel")
-        plain_ms = device_ms(plain)
-        enqueue_ms, plain_enqueue_ms = time_ms(kernel), time_ms(plain)
-        timed_by = "profiler"
-        if ms == 0.0 or plain_ms == 0.0:
-            ms, plain_ms, timed_by = enqueue_ms, plain_enqueue_ms, "events"
         out_bytes = b * 128 * 128 * 3 * torch.finfo(dtype).bits // 8
         bound_s, bound_by = _preprocess_bound(b, out_bytes)
+        for tries in range(1, MEASURE_TRIES + 1):
+            # device time per call from the profiler; back-to-back CUDA
+            # events measure the host's enqueue rate for a kernel this short
+            ms = device_ms(kernel, match="preprocess_inference_kernel")
+            plain_ms = device_ms(plain)
+            enqueue_ms, plain_enqueue_ms = time_ms(kernel), time_ms(plain)
+            timed_by = "profiler"
+            if ms == 0.0 or plain_ms == 0.0:
+                ms, plain_ms, timed_by = enqueue_ms, plain_enqueue_ms, "events"
+            if not under_bound(bound_s * 1e3, ms=ms, plain_ms=plain_ms):
+                break
         check_bound(f"preprocess kernel B={b} {dtype}", bound_s * 1e3,
                     ms=ms, plain_ms=plain_ms)
         log("kernel", name="preprocess_inference", batch=b,
             dtype=str(dtype).split(".")[-1], ms=f"{ms:.5f}",
             plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_s * 1e3:.5f}",
             bound_share=f"{bound_s * 1e3 / ms:.3f}", bound_by=bound_by,
-            bytes=b * 101 * 101 + out_bytes, timed_by=timed_by,
+            bytes=b * 101 * 101 + out_bytes, timed_by=timed_by, tries=tries,
             enqueue_ms=f"{enqueue_ms:.5f}",
             plain_enqueue_ms=f"{plain_enqueue_ms:.5f}")
         if record is None:
@@ -729,17 +767,6 @@ def _time_sort(dev, rows):
         return sk.sort_desc(keys, payload)
 
     plan = sk.card_plan(rows, SORT_LENGTH, dev)
-    ms = device_ms(kernel, match=sk.KERNEL_PREFIX, iters=20,
-                   launches_per_call=len(plan))
-    plain_ms = device_ms(plain, iters=5)
-    library_ms = device_ms(library, iters=20)
-    events = dict(ms=time_ms(kernel, 50, 5), plain_ms=time_ms(plain, 5, 2),
-                  library_ms=time_ms(library, 50, 5))
-    timed_by = "profiler"
-    if ms == 0.0 or plain_ms == 0.0 or library_ms == 0.0:
-        ms, plain_ms, library_ms = (events["ms"], events["plain_ms"],
-                                    events["library_ms"])
-        timed_by = "events"
     n = rows * SORT_LENGTH
     bytes_moved = n * 16            # keys and payload, read once, written once
     n_exp = SORT_LENGTH.bit_length() - 1
@@ -747,6 +774,21 @@ def _time_sort(dev, rows):
     bound_s = max(bytes_moved / HBM_BYTES_PER_S, compare_exchanges / FP32_FLOPS)
     bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S
                 >= compare_exchanges / FP32_FLOPS else "operations")
+    for tries in range(1, MEASURE_TRIES + 1):
+        ms = device_ms(kernel, match=sk.KERNEL_PREFIX, iters=20,
+                       launches_per_call=len(plan))
+        plain_ms = device_ms(plain, iters=5)
+        library_ms = device_ms(library, iters=20)
+        events = dict(ms=time_ms(kernel, 50, 5), plain_ms=time_ms(plain, 5, 2),
+                      library_ms=time_ms(library, 50, 5))
+        timed_by = "profiler"
+        if ms == 0.0 or plain_ms == 0.0 or library_ms == 0.0:
+            ms, plain_ms, library_ms = (events["ms"], events["plain_ms"],
+                                        events["library_ms"])
+            timed_by = "events"
+        if not under_bound(bound_s * 1e3, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms):
+            break
     check_bound(f"sort [{rows}, {SORT_LENGTH}]", bound_s * 1e3, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms)
     log("kernel", name="bitonic_sort_desc", rows=rows, length=SORT_LENGTH,
@@ -757,7 +799,7 @@ def _time_sort(dev, rows):
         x_library=f"{ms / library_ms:.3f}",
         device_launches_per_call=len(plan),
         bytes=bytes_moved, compare_exchanges=compare_exchanges,
-        timed_by=timed_by, events_ms=f"{events['ms']:.5f}",
+        timed_by=timed_by, tries=tries, events_ms=f"{events['ms']:.5f}",
         events_plain_ms=f"{events['plain_ms']:.5f}",
         events_library_ms=f"{events['library_ms']:.5f}")
     return {"name": "bitonic_sort_desc", "route": "cuda",
@@ -861,19 +903,23 @@ def phase_conv_kernel(dev):
         def library():
             return F.conv2d(x, w, padding=0 if halo else 1)
 
-        with torch.no_grad():
-            ms = device_ms(kernel, match="conv3x3_pair_kernel", iters=20)
-            plain_ms = device_ms(plain, iters=10)
-            library_ms = device_ms(library, iters=20)
-            events = dict(ms=time_ms(kernel, 50, 5),
-                          plain_ms=time_ms(plain, 20, 3),
-                          library_ms=time_ms(library, 50, 5))
-        timed_by = "profiler"
-        if 0.0 in (ms, plain_ms, library_ms):
-            ms, plain_ms, library_ms = (events["ms"], events["plain_ms"],
-                                        events["library_ms"])
-            timed_by = "events"
         bound_ms, bound_by, flops, nbytes = conv_bound(shape, halo)
+        for tries in range(1, MEASURE_TRIES + 1):
+            with torch.no_grad():
+                ms = device_ms(kernel, match="conv3x3_pair_kernel", iters=20)
+                plain_ms = device_ms(plain, iters=10)
+                library_ms = device_ms(library, iters=20)
+                events = dict(ms=time_ms(kernel, 50, 5),
+                              plain_ms=time_ms(plain, 20, 3),
+                              library_ms=time_ms(library, 50, 5))
+            timed_by = "profiler"
+            if 0.0 in (ms, plain_ms, library_ms):
+                ms, plain_ms, library_ms = (events["ms"], events["plain_ms"],
+                                            events["library_ms"])
+                timed_by = "events"
+            if not under_bound(bound_ms, ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms):
+                break
         check_bound(f"conv kernel {name}", bound_ms, ms=ms,
                     plain_ms=plain_ms, library_ms=library_ms)
         log("conv_kernel", shape=name, x=list(shape), ms=f"{ms:.5f}",
@@ -881,7 +927,7 @@ def phase_conv_kernel(dev):
             bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, flops=flops,
             bytes=nbytes, tflops=f"{flops / ms / 1e9:.1f}",
             roofline_share=f"{bound_ms / ms:.3f}", timed_by=timed_by,
-            events_ms=f"{events['ms']:.5f}",
+            tries=tries, events_ms=f"{events['ms']:.5f}",
             events_library_ms=f"{events['library_ms']:.5f}")
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
@@ -1087,8 +1133,12 @@ def phase_probe_kernels(dev, card):
 
     def record(key, variant, kernel, match, plain, library, nbytes, ops,
                ops_rate=BF16_DENSE_FLOPS):
-        t = _timed(kernel, match, plain, library)
         bound_ms, bound_by = gemm_bound(nbytes, ops, ops_rate)
+        for tries in range(1, MEASURE_TRIES + 1):
+            t = _timed(kernel, match, plain, library)
+            if not under_bound(bound_ms, ms=t["ms"], plain_ms=t["plain_ms"],
+                               library_ms=t["library_ms"]):
+                break
         lib = t["library_ms"]
         check_bound(f"{key} {variant}", bound_ms, ms=t["ms"],
                     plain_ms=t["plain_ms"], library_ms=lib)
@@ -1098,7 +1148,7 @@ def phase_probe_kernels(dev, card):
             bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, bytes=nbytes,
             ops=ops, tops=f"{ops / t['ms'] / 1e9:.1f}",
             roofline_share=f"{bound_ms / t['ms']:.3f}",
-            timed_by=t["timed_by"], card=repr(card))
+            timed_by=t["timed_by"], tries=tries, card=repr(card))
         rec = dict(variant=variant, ms=t["ms"], plain_ms=t["plain_ms"],
                    library_ms=lib, bound_ms=bound_ms, bound_by=bound_by)
         records.setdefault(key, []).append(rec)
@@ -1504,7 +1554,8 @@ def phase_cv(card, n_folds=6):
     validation-loss or predict batch. The out-of-fold masks (hence the
     fold scores) and the submission agree under the threshold-margin rule
     (fp32 archives: no slack), and a fold with no undecidable pixel has
-    the same IOUT in both."""
+    the same IOUT in both. Then the int8 gate over the same experiment
+    (:func:`_cv_int8_gate`). Returns the launches of the three."""
     import numpy as np
     import torch
     from salt_tpu_torch import cli
@@ -1568,6 +1619,8 @@ def phase_cv(card, n_folds=6):
                 fold_iout=[round(v, 5) for v in scores["fold_iout"]],
                 fold_iou=[round(v, 5) for v in scores["fold_iou"]],
                 iout_mean=f"{scores['iout_mean']:.5f}", card=repr(card))
+        gate = _cv_int8_gate(exp, flags, card, n_folds, val_batches,
+                             test_batches)
     on, off = runs["on"], runs["off"]
     oof_ids, p_on = on["out"]["out_of_fold_train_predictions"]
     oof_ids_off, p_off = off["out"]["out_of_fold_train_predictions"]
@@ -1593,7 +1646,7 @@ def phase_cv(card, n_folds=6):
         test_delta=test_delta, test_undecidable_pixels=test_undecidable,
         submission_pixels_differing=int((on["masks"] != off["masks"]).sum()),
         card=repr(card))
-    return on["counts"], off["counts"]
+    return on["counts"], off["counts"], gate
 
 
 def phase_metadata(card):
@@ -1879,30 +1932,52 @@ def phase_losses(dev):
 def phase_bench(card):
     """``python -m salt_tpu_torch.tools.bench`` at reduced windows (it
     prints its line; its keys and rates are checked). The TTA steps launch
-    the preprocess kernel and the train steps the sort kernel; returns
-    their launches."""
+    the preprocess kernel, the int8 TTA step and the int8 serve the int8
+    kernels (INT8_CONV_PER_FORWARD convs a forward, each after two
+    quantize calls) and the train steps the sort kernel; returns their
+    launches."""
+    from salt_tpu_torch.ops import int8_conv as ic
     from salt_tpu_torch.ops import preprocess_kernel as pk
     from salt_tpu_torch.ops import sort_kernel as sk
     from salt_tpu_torch.tools import bench
-    pk.launches = sk.launches = 0
+    pk.launches = sk.launches = ic.conv_launches = ic.quantize_launches = 0
     t0 = time.perf_counter()
     line = bench.main(["--iters", "10", "--windows", "2", "--train-iters",
                        "5", "--profile-steps", "3"])
     wall = time.perf_counter() - t0
-    counts = dict(preprocess=pk.launches, sort=sk.launches)
-    rates = ("flagship_tta_bf16", "flagship_train", "salt_unet16_tta",
-             "serve_synthetic_2048")
+    counts = dict(preprocess=pk.launches, sort=sk.launches,
+                  int8_conv=ic.conv_launches, int8_quant=ic.quantize_launches)
+    rates = ("flagship_tta_bf16", "flagship_tta_int8", "flagship_train",
+             "salt_unet16_tta", "serve_synthetic_2048")
     steps = line["breakdown"]
+    # the int8 launches are exact in the counters (a profiler session may
+    # lose a few events of the step's 57 + 228)
     if (not all(line[k]["value"] > 0 for k in rates)
-            or line["flagship_tta_int8"] is not None
+            or line["flagship_tta_int8"]["quant_bits"] != 8
             or steps["tta_step"]["kernels"]["preprocess_inference_kernel"][
                 "launches_per_step"] != 1
+            or not steps["tta_step_int8"]["kernels"]["int8_conv_kernel"][
+                "launches_per_step"] > 0
+            or counts["int8_conv"] % INT8_CONV_PER_FORWARD
+            or counts["int8_quant"] != 2 * counts["int8_conv"]
             or not steps["train_step"]["kernels"][bench.KERNEL_PREFIX][
                 "launches_per_step"] > 0
-            or not counts["preprocess"] or not counts["sort"]):
+            or not all(counts.values())):
         raise AssertionError(f"bench line {line}, launches {counts}")
-    log("bench", wall_s=f"{wall:.3f}", preprocess_launches=counts[
-        "preprocess"], sort_launches=counts["sort"], card=repr(card),
+    for name in ("tta_step", "tta_step_int8"):
+        b = steps[name]
+        log("bench_step", step=name, batch=b["batch"],
+            wall_ms=f"{b['wall_ms']:.3f}", device_ms=f"{b['device_ms']:.3f}",
+            busy_share=f"{b['busy_share']:.3f}",
+            launches_per_step=b["launches_per_step"],
+            device_launches_per_step=b["device_launches_per_step"],
+            kernels={k: (round(v["ms_per_step"], 4), v["launches_per_step"])
+                     for k, v in b["kernels"].items()},
+            top=[(t["kernel"][:50], t["calls_per_step"],
+                  round(t["ms_per_step"], 3)) for t in b["top"][:6]],
+            card=repr(card))
+    log("bench", wall_s=f"{wall:.3f}", card=repr(card),
+        **{f"{k}_launches": v for k, v in counts.items()},
         **{k: f"{line[k]['value']:.1f}" for k in rates})
     return counts
 
@@ -1918,6 +1993,9 @@ ARCH_CELLS = (("UNetSeResNet", 50, 3), ("UNetSeResNetXt", 50, 0),
               ("UNetResNetWithDepth", 34, 9))
 ARCH_TRAIN = ("UNetSeResNet", "UNetResNetWithDepth")
 N_ARCH_TTA = 64                   # hflip-TTA masks, card bf16 vs CPU fp32
+#: the arch phase's U-Nets take 32 (their CPU fp32 references, 20-40 s
+#: each at 64, held the whole run over half its time limit)
+N_ARCH_TTA_UNETS = 32
 N_ARCH_SERVE = 480                # serve --synthetic, batch 24
 N_ARCH_TRAIN = 144                # fold 0 of 6: 120 train / 24 valid
 
@@ -1932,10 +2010,10 @@ def _arch_config(arch, depth):
     return cfg
 
 
-def _arch_forward(dev, card, arch, depth, per_forward):
+def _arch_forward(dev, card, arch, depth, per_forward, n_tta=N_ARCH_TTA):
     """One architecture from seeded weights: fp32 logits on the card (TF32
     off) against the CPU at batch 2, in both forms, at rtol=atol=2e-3;
-    hflip-TTA probabilities of N_ARCH_TTA synthetic images (with their
+    hflip-TTA probabilities of ``n_tta`` synthetic images (with their
     depths) in bf16 through the conv kernel on the card against fp32 on
     the CPU, masks under the threshold-margin rule at the CPU
     probabilities' median (seeded weights leave nearly every pixel on one
@@ -1971,7 +2049,7 @@ def _arch_forward(dev, card, arch, depth, per_forward):
     torch.testing.assert_close(fp32_infer.cpu(), cpu_infer, rtol=2e-3,
                                atol=2e-3)
 
-    bundle = synthetic_bundle(N_ARCH_TTA, seed=7, with_masks=False)
+    bundle = synthetic_bundle(n_tta, seed=7, with_masks=False)
     cpu_cfg = _arch_config(arch, depth)
     cpu_cfg.training.dtype = "float32"
     cpu_cfg.training.batch_size_inference = 8
@@ -1987,7 +2065,7 @@ def _arch_forward(dev, card, arch, depth, per_forward):
                                     tta=True)
     torch.cuda.synchronize()
     launches = ck.launches
-    forwards = math.ceil(N_ARCH_TTA / cfg.training.batch_size_inference)
+    forwards = math.ceil(n_tta / cfg.training.batch_size_inference)
     if launches != per_forward * forwards:
         raise AssertionError(f"{arch}: conv kernel launched {launches} times "
                              f"in {forwards} infer forwards, expected "
@@ -2016,7 +2094,7 @@ def _arch_forward(dev, card, arch, depth, per_forward):
         p.numel() for p in model.parameters()),
         fp32_vs_cpu=float((fp32.cpu() - cpu).abs().max()),
         fp32_infer_vs_cpu=float((fp32_infer.cpu() - cpu_infer).abs().max()),
-        logit_scale=float(cpu.abs().max()), tta_images=N_ARCH_TTA,
+        logit_scale=float(cpu.abs().max()), tta_images=n_tta,
         tta_prob_delta=delta, tta_undecidable_px=undecidable,
         salt_fraction_at_half=f"{float(np.mean(p_cpu[:, 1] > 0.5)):.4f}",
         mask_threshold=threshold,
@@ -2229,7 +2307,7 @@ def phase_arch(dev, card):
     kernels' launches on the serve and train paths."""
     total = dict(preprocess=0, sort=0, conv=0)
     for arch, depth, per_forward in ARCH_CELLS:
-        _arch_forward(dev, card, arch, depth, per_forward)
+        _arch_forward(dev, card, arch, depth, per_forward, N_ARCH_TTA_UNETS)
         counts = _arch_serve(dev, card, arch, depth, per_forward)
         if arch in ARCH_TRAIN:
             train = _arch_train(dev, card, arch, depth, per_forward)
@@ -2238,6 +2316,532 @@ def phase_arch(dev, card):
             total[k] += counts.get(k, 0)
     _arch_pretrained(dev, card)
     return total
+
+
+#: the arch2 phase: the last architectures of the JAX registry at full
+#: width (encoder_depth 34 as the default config gives it); neither takes
+#: a conv callable, so no conv kernel launches in them
+ARCH2_CELLS = (("LargeKernelMatters", 34), ("PSPNet", 34))
+ARCH2_TRAIN = ("PSPNet",)
+#: the modules whose runners are ROADMAP item 16: card against CPU only
+ARCH2_MODULES = ("EmptinessClassifier", "StackingFCN", "StackingFCNWithDepth")
+
+
+def _module_forward(dev, card, arch):
+    """One module held as a module (its runner is ROADMAP item 16), full
+    width from seeded weights: fp32 logits on the card (TF32 off) against
+    the CPU at batch 2, rtol=atol=2e-3 (train mode too, with the same
+    batch statistics). A stacking head takes ``input_model_nr`` (18)
+    probability maps, the classifier 3 channels; the depth head the
+    depths."""
+    import copy
+    import torch
+    from salt_tpu_torch.models.registry import build_model, init_seeded
+    from salt_tpu_torch.ops.preprocess import preprocess_inference
+
+    cfg = _arch_config(arch, 34)
+    model = init_seeded(build_model(cfg.model), seed=0)
+    if arch.startswith("Stacking"):
+        x = torch.rand(2, cfg.model.input_model_nr, 128, 128,
+                       generator=torch.Generator().manual_seed(4))
+    else:
+        x = preprocess_inference(torch.from_numpy(seeded_images(2, seed=3)))
+        x = x.permute(0, 3, 1, 2)
+    d = torch.tensor([[0.25], [0.8]]) if model.takes_depth else None
+    card_model = copy.deepcopy(model).to(dev,
+                                         memory_format=torch.channels_last)
+    errs = {}
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            model.train(mode == "train")
+            card_model.train(mode == "train")
+            cpu = model(x, depth=d)
+            got = card_model(x.to(dev), depth=None if d is None
+                             else d.to(dev))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.cpu(), cpu, rtol=2e-3, atol=2e-3)
+            errs[mode] = float((got.cpu() - cpu).abs().max())
+    log("arch2_module", arch=arch, params=sum(p.numel()
+                                              for p in model.parameters()),
+        input=list(x.shape), logits=list(cpu.shape),
+        fp32_vs_cpu_eval=errs["eval"], fp32_vs_cpu_train=errs["train"],
+        logit_scale=float(cpu.abs().max()), card=repr(card))
+
+
+N_ARCH2_CV = 96                   # 2 folds of 48 / 48, a 24-image test set
+
+
+def _arch2_cv(card, arch, depth):
+    """``cli train-evaluate-predict-cv`` of ``arch`` as a user runs it
+    (N_ARCH2_CV synthetic images, 2 folds, 1 epoch, hflip TTA, batch 24):
+    the sort kernel once per train step and validation-loss batch, the
+    preprocess kernel once per validation predict, loss and test
+    predict batch; fold scores and a submission of every test id."""
+    import torch
+    from salt_tpu_torch import cli
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops import sort_kernel as sk
+
+    n_folds = 2
+    n_valid, n_test = N_ARCH2_CV // n_folds, max(N_ARCH2_CV // 4, 8)
+    val_batches = math.ceil(n_valid / SERVE_BATCH)
+    test_batches = math.ceil(n_test / SERVE_BATCH)
+    steps = (N_ARCH2_CV - n_valid) // TRAIN_BATCH
+    want = dict(sort=n_folds * (steps + val_batches),
+                preprocess=n_folds * (3 * val_batches + test_batches))
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "cv")
+        pk.launches = sk.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["train-evaluate-predict-cv", "--synthetic",
+                       str(N_ARCH2_CV), "--epochs", "1",
+                       "--set", f"paths.experiment_dir={exp}",
+                       "--set", f"model.architecture={arch}",
+                       "--set", f"model.encoder_depth={depth}",
+                       "--set", "postpro.use_tta=true",
+                       "--set", f"execution.n_cv_splits={n_folds}",
+                       "--set", f"training.batch_size_train={TRAIN_BATCH}",
+                       "--set",
+                       f"training.batch_size_inference={SERVE_BATCH}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sort=sk.launches, preprocess=pk.launches)
+        with open(os.path.join(exp, "cv_scores.json")) as f:
+            scores = json.load(f)
+        ids, _ = _csv_masks(os.path.join(exp, "submission.csv"))
+    if (rc != 0 or counts != want or len(scores["fold_iout"]) != n_folds
+            or len(ids) != n_test):
+        raise AssertionError(f"{arch} cv: rc {rc}, launches {counts} "
+                             f"(expected {want}), scores {scores}")
+    log("arch2_cv", arch=f"{arch}-{depth}", images=N_ARCH2_CV, folds=n_folds,
+        wall_s=f"{wall:.3f}", fold_iout=[round(v, 5)
+                                         for v in scores["fold_iout"]],
+        test_images=len(ids), **counts, card=repr(card))
+    return counts
+
+
+def phase_arch2(dev, card):
+    """LargeKernelMatters-34 and PSPNet-34 at full width, bf16, seeded
+    weights, through the same checks as the arch phase (card against CPU,
+    64 TTA masks under the margin rule, ``serve --synthetic 480`` at 24,
+    a TTA step profiled); PSPNet trained 2 epochs of 5 steps under Lovász
+    (the sort kernel); each through the CV commands (:func:`_arch2_cv`);
+    the emptiness classifier and the two stacking heads card against CPU.
+    Returns the kernels' launches."""
+    total = dict(preprocess=0, sort=0, conv=0)
+    for arch, depth in ARCH2_CELLS:
+        _arch_forward(dev, card, arch, depth, 0)
+        counts = [_arch_serve(dev, card, arch, depth, 0),
+                  _arch2_cv(card, arch, depth)]
+        if arch in ARCH2_TRAIN:
+            counts.append(_arch_train(dev, card, arch, depth, 0))
+        for k in total:
+            total[k] += sum(c.get(k, 0) for c in counts)
+    for arch in ARCH2_MODULES:
+        _module_forward(dev, card, arch)
+    return total
+
+
+#: int8 convs of one flagship (UNetResNet-34) infer form with
+#: model.quant_bits=8, JAX's AQT route as tests/test_torch_int8_model.py
+#: counts it: the encoder's 36 (stem, 32 block convs, 3 projections), the
+#: center's 2, 12 in the decoders' sums and convs, dec1's 2, the
+#: hypercolumn head's 5 branches. With pallas_conv "on" its 14 64 -> 64
+#: convs take row 3 instead.
+INT8_CONV_PER_FORWARD = 57
+INT8_CONV_PER_FORWARD_ON = 43
+N_INT8_SERVE = 2048
+
+
+def _int8_config(quant_bits=8, pallas_conv="off", batch=SERVE_BATCH):
+    from salt_tpu_torch.core.config import default_config
+    cfg = default_config()                 # the flagship, bf16
+    cfg.model.quant_bits = quant_bits
+    cfg.model.pallas_conv = pallas_conv
+    cfg.postpro.use_tta = True
+    cfg.training.batch_size_inference = batch
+    return cfg
+
+
+def _int8_sites(dev):
+    """The int8 route's calls in one hflip-TTA step of the flagship at
+    batch 24 (48 images a forward), recorded by wrapping the conv of
+    ``models.quant``: [(x shape, w shape, stride, padding, groups)]."""
+    import torch
+    from salt_tpu_torch.models import quant
+    from salt_tpu_torch.train.steps import SegmentationRunner
+
+    runner = SegmentationRunner(_int8_config(), dev)
+    model = runner.init_model(0)
+    sites = []
+    conv = quant.conv2d_int8
+
+    def record(x, w, stride=1, padding=0, groups=1):
+        sites.append((tuple(x.shape), tuple(w.shape), _int8_pair(stride),
+                      _int8_pair(padding), groups))
+        return conv(x, w, stride, padding, groups)
+
+    quant.conv2d_int8 = record
+    try:
+        imgs = torch.from_numpy(seeded_images(SERVE_BATCH, seed=5)).to(dev)
+        runner.predict_tta_step(model, imgs)
+    finally:
+        quant.conv2d_int8 = conv
+    return sites
+
+
+def _int8_pair(v):
+    return (v, v) if isinstance(v, int) else tuple(int(i) for i in v)
+
+
+def _int8_bound(xs, ws, stride, padding, groups):
+    """(bound ms, "bytes" | "operations", ops, bytes) of one int8 conv:
+    2 M O K int8 operations at the dense int8 rate; the int8 input and
+    weight read once, the scales, the bf16 output written once."""
+    b, c, h, w = xs
+    o, cg, kh, kw = ws
+    (sh, sw), (ph, pw) = stride, padding
+    oh, ow = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+    ops = 2 * b * oh * ow * o * kh * kw * cg
+    nbytes = b * c * h * w + o * kh * kw * cg + 4 * (b + o) + 2 * b * o * oh * ow
+    t_ops, t_bytes = ops / INT8_DENSE_OPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
+
+
+def _quant_bound(rows, length, itemsize):
+    """Bound ms of quantizing [rows, length] values of ``itemsize`` bytes:
+    each read once, each int8 written once, the scales."""
+    return (rows * length * (itemsize + 1) + 4 * rows) / HBM_BYTES_PER_S * 1e3
+
+
+def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
+    """One conv of the route on random bf16 operands: the quantize
+    kernel's values and scales bit-equal to its plain version's for the
+    activation and the weight, the conv kernel within one bf16 ulp of its
+    plain version (no floor: the s32 sums are exact); the times of the
+    kernels' calls, of cuDNN's bf16 ``F.conv2d`` on the same shape (the
+    yardstick; the port never calls it) and, with ``plain``, of the plain
+    versions, all by CUDA events over back-to-back calls (the profiler
+    records no device event in some sessions of a call that launches
+    only ctypes kernels, so it does not time these), and the bounds.
+    Returns a dict."""
+    import torch
+    import torch.nn.functional as F
+    from salt_tpu_torch.ops import int8_conv as ic
+
+    gen = torch.Generator().manual_seed(seed)
+    b, c, h, w = xs
+    o, cg, kh, kw = ws
+    x = (torch.randn(xs, generator=gen) * 2).to(torch.bfloat16).to(
+        dev).contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn(ws, generator=gen) / math.sqrt(kh * kw * cg)).to(
+        torch.bfloat16).to(dev)
+    rows_x = x.permute(0, 2, 3, 1).reshape(b, -1)
+    rows_w = wt.permute(0, 2, 3, 1).reshape(o, -1).contiguous()
+    with torch.no_grad():
+        qx, sx = ic.quantize_rows(rows_x)
+        qw, sw = ic.quantize_rows(rows_w)
+        for (q, s), rows in (((qx, sx), rows_x), ((qw, sw), rows_w)):
+            pq, ps = ic.quantize_rows_plain(rows)
+            if not (torch.equal(q, pq) and torch.equal(s, ps)):
+                raise AssertionError(f"int8 quantize {xs} {ws}: "
+                                     f"{int((q != pq).sum())} values and "
+                                     f"{int((s != ps).sum())} scales differ")
+        xq = qx.view(b, h, w, c).permute(0, 3, 1, 2)
+        wq = qw.view(o, kh, kw, cg).permute(0, 3, 1, 2)
+        args = (xq, sx, wq, sw, stride, padding, groups, torch.bfloat16)
+        got = ic.int8_conv2d(*args).float()
+        want = ic.int8_conv2d_plain(*args).float()
+        torch.cuda.synchronize()
+        _, exp = torch.frexp(want)
+        ulp = torch.ldexp(torch.ones_like(want), exp - 8)
+        err = (got - want).abs()
+        worst = float((err / ulp).max())
+        if got.shape != want.shape or worst > 1.0:
+            raise AssertionError(f"int8 conv {xs} {ws}: {worst} bf16 ulp")
+        out = dict(max_abs_err=float(err.max()), max_ulp=worst)
+        out["ms"] = time_ms(lambda: ic.int8_conv2d(*args), iters=50,
+                            warmup=5)
+        # one call is the two passes, absmax_kernel and quant_kernel
+        out["quant_ms"] = sum(time_ms(lambda: ic.quantize_rows(rows),
+                                      iters=50, warmup=5)
+                              for rows in (rows_x, rows_w))
+        out["cudnn_bf16_ms"] = time_ms(
+            lambda: F.conv2d(x, wt, None, stride, padding, 1, groups),
+            iters=20, warmup=3)
+        out["bound_ms"], out["bound_by"], out["ops"], out["bytes"] = \
+            _int8_bound(xs, ws, stride, padding, groups)
+        out["quant_bound_ms"] = (_quant_bound(b, c * h * w, 2)
+                                 + _quant_bound(o, cg * kh * kw, 2))
+        check_bound(f"int8 conv {xs} {ws}", out["bound_ms"], ms=out["ms"])
+        check_bound(f"int8 quantize {xs} {ws}", out["quant_bound_ms"],
+                    quant_ms=out["quant_ms"])
+        if plain:
+            out["plain_ms"] = time_ms(lambda: ic.int8_conv2d_plain(*args),
+                                      iters=5, warmup=1)
+            out["quant_plain_ms"] = sum(
+                time_ms(lambda: ic.quantize_rows_plain(rows), iters=20,
+                        warmup=3) for rows in (rows_x, rows_w))
+            check_bound(f"int8 conv {xs} {ws}", out["bound_ms"],
+                        plain_ms=out["plain_ms"])
+            check_bound(f"int8 quantize {xs} {ws}", out["quant_bound_ms"],
+                        quant_plain_ms=out["quant_plain_ms"])
+    return out
+
+
+def _int8_forward_counts(dev, card):
+    """The int8 kernels' launches in one TTA step of the flagship at batch
+    24, "off" and "on", against the route's sites (JAX's, counted in
+    tests/test_torch_int8_model.py): each routed conv one conv launch and
+    two quantize calls; "on" sends the 14 64 -> 64 convs to row 3."""
+    import torch
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops import int8_conv as ic
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.train.steps import SegmentationRunner
+
+    imgs = torch.from_numpy(seeded_images(SERVE_BATCH, seed=6)).to(dev)
+    total = dict(int8_conv=0, int8_quant=0, conv=0, preprocess=0)
+    for mode, want in (("off", (INT8_CONV_PER_FORWARD, 0)),
+                       ("on", (INT8_CONV_PER_FORWARD_ON,
+                               CONV_KERNEL_PER_FORWARD))):
+        runner = SegmentationRunner(_int8_config(pallas_conv=mode), dev)
+        model = runner.init_model(0)
+        ic.conv_launches = ic.quantize_launches = ck.launches = 0
+        pk.launches = 0
+        probs = runner.predict_tta_step(model, imgs)
+        torch.cuda.synchronize()
+        got = (ic.conv_launches, ck.launches)
+        if (got != want or ic.quantize_launches != 2 * want[0]
+                or pk.launches != 1 or not bool(torch.isfinite(probs).all())):
+            raise AssertionError(f"int8 forward ({mode}): int8 conv and row "
+                                 f"3 launches {got}, quantize "
+                                 f"{ic.quantize_launches}; expected {want}")
+        log("int8_route", pallas_conv=mode, int8_conv_launches=got[0],
+            quantize_calls=ic.quantize_launches, conv3x3_pair_launches=got[1],
+            card=repr(card))
+        total["int8_conv"] += got[0]
+        total["int8_quant"] += ic.quantize_launches
+        total["conv"] += got[1]
+        total["preprocess"] += pk.launches
+    return total
+
+
+def _int8_serve(dev, card):
+    """``serve --int8 --synthetic 2048`` (the CLI's config: hflip TTA,
+    batch 24, bf16, seeded weights) beside the same serve in bf16:
+    images/s, the kernels' launches per forward batch, the fraction of
+    mask pixels on which the two differ, and one TTA step of each
+    profiled (device ms, busy share, launches)."""
+    import numpy as np
+    import torch
+    from salt_tpu_torch.ops import int8_conv as ic
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.pipeline.serving import serve
+    from salt_tpu_torch.tools.profiling import step_breakdown
+    from salt_tpu_torch.train.steps import SegmentationRunner
+
+    counts, masks = {}, {}
+    imgs = torch.from_numpy(seeded_images(SERVE_BATCH, seed=8)).to(dev)
+    for bits in (0, 8):
+        cfg = _int8_config(quant_bits=bits)
+        with tempfile.TemporaryDirectory() as tmp:
+            out_csv = os.path.join(tmp, "submission.csv")
+            ic.conv_launches = ic.quantize_launches = pk.launches = 0
+            result = serve(cfg, "", "", out_csv, synthetic=N_INT8_SERVE,
+                           device=dev)
+            got = dict(int8_conv=ic.conv_launches,
+                       int8_quant=ic.quantize_launches,
+                       preprocess=pk.launches)
+            _, masks[bits] = _csv_masks(out_csv)
+        forwards = result["batches"] + result["warmup_batches"]
+        per = INT8_CONV_PER_FORWARD if bits else 0
+        if got != dict(int8_conv=per * forwards, int8_quant=2 * per * forwards,
+                       preprocess=forwards):
+            raise AssertionError(f"serve (quant_bits {bits}): launches {got}"
+                                 f" for {forwards} forward batches")
+        runner = SegmentationRunner(cfg, dev)
+        model = runner.init_model(0)
+        steps = step_breakdown(
+            lambda i: runner.predict_tta_step(model, imgs), steps=5, top=5,
+            kernels=("int8_conv_kernel", "quant_kernel", "absmax_kernel"))
+        log("int8_serve", quant_bits=bits, images=N_INT8_SERVE,
+            batch=SERVE_BATCH, tta="hflip", dtype=cfg.training.dtype,
+            images_per_s=result["images_per_sec"],
+            timed_s=f"{result['seconds']:.3f}", batches=result["batches"],
+            warmup_batches=result["warmup_batches"], **got,
+            step_wall_ms=f"{steps['wall_ms']:.3f}",
+            step_device_ms=f"{steps['device_ms']:.3f}",
+            busy_share=f"{steps['busy_share']:.3f}",
+            launches_per_step=steps["launches_per_step"],
+            int8_kernels_per_step={k: (round(v["ms_per_step"], 4),
+                                       v["launches_per_step"])
+                                   for k, v in steps["kernels"].items()},
+            top=[(t["kernel"][:50], t["calls_per_step"],
+                  round(t["ms_per_step"], 3)) for t in steps["top"]],
+            card=repr(card))
+        counts[bits] = got
+    log("int8_serve", mask_pixels_differing_bf16_int8=int(
+        (masks[0] != masks[8]).sum()), pixels=int(masks[0].size),
+        salt_fraction_bf16=f"{float(np.mean(masks[0])):.4f}",
+        salt_fraction_int8=f"{float(np.mean(masks[8])):.4f}")
+    return {k: counts[0][k] + counts[8][k] for k in counts[8]}
+
+
+def phase_int8(dev, card):
+    """int8 serving (``model.quant_bits=8``) on the card: every conv shape
+    of the flagship's int8 route (recorded from one TTA step at batch 24)
+    checked and timed at batch 24 and 64 (48 and 128 images a forward),
+    the plain versions timed at 64; the launches per forward against the
+    route's sites, "off" and
+    "on"; ``serve --int8 --synthetic 2048`` beside bf16. Returns the
+    kernel records (their times summed over one forward at batch 64, each
+    site as often as the forward calls it) and the launches."""
+    sites = _int8_sites(dev)
+    if len(sites) != INT8_CONV_PER_FORWARD:
+        raise AssertionError(f"int8 route: {len(sites)} sites, expected "
+                             f"{INT8_CONV_PER_FORWARD}")
+    shapes = {}
+    for s in sites:
+        shapes[s] = shapes.get(s, 0) + 1
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, cudnn_bf16_ms=0.0,
+                  quant_ms=0.0, quant_plain_ms=0.0, quant_bound_ms=0.0,
+                  ops_ms=0.0, bytes_ms=0.0)
+    max_err = 0.0
+    by_batch = {SERVE_BATCH: dict(ms=0.0, bound_ms=0.0, cudnn_bf16_ms=0.0,
+                                  quant_ms=0.0, quant_bound_ms=0.0)}
+    for i, ((xs, ws, stride, padding, groups), n) in enumerate(
+            shapes.items()):
+        for batch in (SERVE_BATCH, BENCH_BATCH):
+            xb = (2 * batch,) + xs[1:]
+            r = _int8_check(dev, xb, ws, stride, padding, groups, seed=i,
+                            plain=batch == BENCH_BATCH)
+            max_err = max(max_err, r["max_abs_err"])
+            sums = totals if batch == BENCH_BATCH else by_batch[batch]
+            for k in sums:
+                if k in r:
+                    sums[k] += n * r[k]
+            if batch == BENCH_BATCH:
+                totals["ops_ms"] += n * r["ops"] / INT8_DENSE_OPS * 1e3
+                totals["bytes_ms"] += n * r["bytes"] / HBM_BYTES_PER_S * 1e3
+            log("int8_shape", x=list(xb), w=list(ws), stride=stride,
+                padding=padding, groups=groups, per_forward=n,
+                ms=f"{r['ms']:.5f}", quant_ms=f"{r['quant_ms']:.5f}",
+                bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
+                bound_share=f"{r['bound_ms'] / r['ms']:.3f}",
+                tops=f"{r['ops'] / r['ms'] / 1e9:.1f}",
+                cudnn_bf16_ms=f"{r['cudnn_bf16_ms']:.5f}",
+                plain_ms=f"{r.get('plain_ms', float('nan')):.4f}",
+                max_ulp=r["max_ulp"], floor=0, timed_by="events",
+                card=repr(card))
+    log("int8_forward", images=2 * SERVE_BATCH, sites=len(sites),
+        shapes=len(shapes), **{k: f"{v:.4f}"
+                               for k, v in by_batch[SERVE_BATCH].items()},
+        card=repr(card))
+    log("int8_forward", images=2 * BENCH_BATCH, sites=len(sites),
+        shapes=len(shapes), **{k: f"{v:.4f}" for k, v in totals.items()},
+        card=repr(card))
+    counts = _int8_forward_counts(dev, card)
+    serve_counts = _int8_serve(dev, card)
+    for k in serve_counts:
+        counts[k] = counts.get(k, 0) + serve_counts[k]
+    shape = (f"the {len(sites)} int8 convs of one flagship infer forward, "
+             f"{2 * BENCH_BATCH} images, bf16 (summed)")
+    conv = {"name": "int8_conv", "route": "cuda",
+            "source": "salt_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "salt_tpu/models/quant.py:24",
+            "launches": None, "max_abs_err": max_err, "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+            "bound_by": ("operations" if totals["ops_ms"]
+                         >= totals["bytes_ms"] else "bytes"),
+            "library_ms": None, "timed_by": "events",
+            "yardstick_ms": totals["cudnn_bf16_ms"],
+            "yardstick": "cuDNN bf16 F.conv2d, same shapes", "shape": shape}
+    quant = {"name": "int8_quant", "route": "cuda",
+             "source": "salt_tpu_torch/csrc/int8_quant.cu",
+             "replaces": "salt_tpu/models/quant.py:24",
+             "launches": None, "max_abs_err": 0.0, "ms": totals["quant_ms"],
+             "plain_ms": totals["quant_plain_ms"],
+             "bound_ms": totals["quant_bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "timed_by": "events",
+             "shape": shape.replace("the ", "the activation and weight "
+                                    "quantizations of the ", 1)}
+    return conv, quant, counts
+
+
+def _cv_int8_gate(exp, flags, card, n_folds, val_batches, test_batches):
+    """The int8 quality gate over the cv phase's experiment, as a user runs
+    it: ``evaluate-predict-cv --set model.quant_bits=8`` writes one
+    ``int8_gate_network_fold_<i>.json`` a fold (the int8 predictions of
+    each fold's validation split and test set, the float ones of its
+    validation split), then ``serve --int8 --checkpoint <experiment>
+    --synthetic 48`` writes ``<out>.int8_gate.json`` with every fold's
+    checkpoint hash and ``gate_status`` "measured". Returns the launches."""
+    import glob
+    import torch
+    from salt_tpu_torch import cli
+    from salt_tpu_torch.ops import int8_conv as ic
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+
+    int8 = ["--set", "model.pallas_conv=off", "--set", "model.quant_bits=8"]
+    ic.conv_launches = ic.quantize_launches = pk.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["evaluate-predict-cv", *flags, *int8])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    forwards = n_folds * (val_batches + test_batches)
+    got = dict(int8_conv=ic.conv_launches, int8_quant=ic.quantize_launches,
+               preprocess=pk.launches)
+    want = dict(int8_conv=INT8_CONV_PER_FORWARD * forwards,
+                int8_quant=2 * INT8_CONV_PER_FORWARD * forwards,
+                preprocess=n_folds * (2 * val_batches + test_batches))
+    paths = sorted(glob.glob(os.path.join(exp, "int8_gate_*.json")))
+    gates = []
+    for p in paths:
+        with open(p) as f:
+            gates.append(json.load(f))
+    keys = {"checkpoint", "checkpoint_sha256", "quant_bits",
+            "n_validation_images", "float", "int8", "iout_delta"}
+    if (rc != 0 or got != want or len(gates) != n_folds
+            or not all(set(g) == keys and g["quant_bits"] == 8
+                       for g in gates)):
+        raise AssertionError(f"int8 gate: rc {rc}, launches {got} (expected "
+                             f"{want}), {len(gates)} artifacts")
+    log("int8_gate", command="evaluate-predict-cv --set model.quant_bits=8",
+        wall_s=f"{wall:.3f}", folds=n_folds, artifacts=len(gates),
+        iout_delta=[round(g["iout_delta"], 5) for g in gates],
+        iout_float=[round(g["float"]["iout"], 5) for g in gates],
+        iout_int8=[round(g["int8"]["iout"], 5) for g in gates], **got,
+        card=repr(card))
+    out_csv = os.path.join(exp, "int8_submission.csv")
+    n_serve = 2 * SERVE_BATCH
+    ic.conv_launches = ic.quantize_launches = pk.launches = 0
+    rc = cli.main(["serve", "--int8", "--checkpoint", exp, "--synthetic",
+                   str(n_serve), "--out", out_csv, "--set",
+                   "model.pallas_conv=off", "--set",
+                   f"training.batch_size_inference={SERVE_BATCH}"])
+    torch.cuda.synchronize()
+    with open(out_csv + ".int8_gate.json") as f:
+        prov = json.load(f)
+    batches = math.ceil(n_serve / SERVE_BATCH)
+    forwards = batches * n_folds + batches       # timed, and the warm-up
+    served = dict(int8_conv=ic.conv_launches, int8_quant=ic.quantize_launches,
+                  preprocess=pk.launches)
+    if (rc != 0 or prov["gate_status"] != "measured"
+            or len(prov["gates"]) != n_folds
+            or len(prov["checkpoints"]) != n_folds
+            or served != dict(int8_conv=INT8_CONV_PER_FORWARD * forwards,
+                              int8_quant=2 * INT8_CONV_PER_FORWARD * forwards,
+                              preprocess=forwards)):
+        raise AssertionError(f"serve --int8: rc {rc}, provenance "
+                             f"{prov['gate_status']!r} with "
+                             f"{len(prov['gates'])} gates, launches {served}")
+    log("int8_gate", command="serve --int8 --checkpoint <cv experiment>",
+        images=n_serve, gate_status=prov["gate_status"],
+        gates=len(prov["gates"]), checkpoints=len(prov["checkpoints"]),
+        **served, card=repr(card))
+    return {k: got[k] + served[k] for k in got}
 
 
 def main():
@@ -2276,42 +2880,59 @@ def main():
     phase_train_step(dev)
     train_sort, train_preprocess = phase_train(dev, smi)
     phase_train_profile(dev, smi)
-    cv_on, cv_off = phase_cv(smi)
+    cv_on, cv_off, cv_int8 = phase_cv(smi)
     meta = phase_metadata(smi)
     synthetic_preprocess = phase_serve_synthetic(dev, smi)
     salt_unet = phase_salt_unet(dev, smi)
     phase_losses(dev)
     arch = phase_arch(dev, smi)
+    arch2 = phase_arch2(dev, smi)
+    int8_conv, int8_quant, int8 = phase_int8(dev, smi)
     bench_counts = phase_bench(smi)
     preprocess["launches"] = (serve_preprocess + train_preprocess
                               + cv_on["preprocess"] + cv_off["preprocess"]
+                              + cv_int8["preprocess"]
                               + meta["preprocess"] + synthetic_preprocess
                               + salt_unet["preprocess"]
                               + bench_counts["preprocess"]
-                              + arch["preprocess"])
+                              + arch["preprocess"] + arch2["preprocess"]
+                              + int8["preprocess"])
     sort["launches"] = (train_sort + cv_on["sort"] + meta["sort"]
                         + salt_unet["sort"] + bench_counts["sort"]
-                        + arch["sort"])
+                        + arch["sort"] + arch2["sort"])
     conv["launches"] = (serve_conv + cv_on["conv"] + ab_launches
-                        + arch["conv"])
+                        + arch["conv"] + arch2["conv"] + int8["conv"])
+    int8_conv["launches"] = (int8["int8_conv"] + cv_int8["int8_conv"]
+                             + bench_counts["int8_conv"])
+    int8_quant["launches"] = (int8["int8_quant"] + cv_int8["int8_quant"]
+                              + bench_counts["int8_quant"])
     for key, count in probe_launches.items():
         probes[key]["launches"] = count
     log("launches", preprocess_serve=serve_preprocess,
         preprocess_train=train_preprocess,
         preprocess_cv=cv_on["preprocess"] + cv_off["preprocess"],
+        preprocess_int8_gate=cv_int8["preprocess"],
         preprocess_metadata=meta["preprocess"],
         preprocess_serve_synthetic=synthetic_preprocess,
         preprocess_salt_unet=salt_unet["preprocess"],
         preprocess_bench=bench_counts["preprocess"],
-        preprocess_arch=arch["preprocess"], sort_train=train_sort,
+        preprocess_arch=arch["preprocess"],
+        preprocess_arch2=arch2["preprocess"],
+        preprocess_int8=int8["preprocess"], sort_train=train_sort,
         sort_cv=cv_on["sort"], sort_metadata=meta["sort"],
         sort_salt_unet=salt_unet["sort"], sort_bench=bench_counts["sort"],
-        sort_arch=arch["sort"], conv_serve=serve_conv,
-        conv_cv=cv_on["conv"], conv_ab=ab_launches, conv_arch=arch["conv"],
-        **probe_launches)
+        sort_arch=arch["sort"], sort_arch2=arch2["sort"],
+        conv_serve=serve_conv, conv_cv=cv_on["conv"], conv_ab=ab_launches,
+        conv_arch=arch["conv"], conv_int8=int8["conv"],
+        int8_conv_int8=int8["int8_conv"], int8_conv_gate=cv_int8["int8_conv"],
+        int8_conv_bench=bench_counts["int8_conv"],
+        int8_quant_int8=int8["int8_quant"],
+        int8_quant_gate=cv_int8["int8_quant"],
+        int8_quant_bench=bench_counts["int8_quant"], **probe_launches)
     print(json.dumps({"kernels": [
         preprocess, sort, conv, probes["conv128"], probes["conv64p"],
-        probes["matmul"], probes["conv64p_v2"]]}), flush=True)
+        probes["matmul"], probes["conv64p_v2"], int8_quant, int8_conv]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,20 +11,25 @@ under the same name:
                                K-fold split, batch feed
 - ``salt_tpu_torch.ops``       preprocessing (plain torch + the CUDA kernel),
                                augmentation, the bitonic sort (plain torch +
-                               the CUDA kernel), TTA, RLE codec, kernel build
+                               the CUDA kernel), the int8 quantize and conv
+                               (plain torch + CUDA kernels), TTA, RLE codec,
+                               kernel build
 - ``salt_tpu_torch.losses``    the Lovász hinge / softmax, stable BCE, dice
                                and the mixed dice losses, the focal loss
 - ``salt_tpu_torch.metrics``   IoU / IOUT
 - ``salt_tpu_torch.models``    the U-Net (ResNet 18-152, SE-ResNet,
                                SE-ResNeXt or DenseNet encoder, scSE decoder,
                                hypercolumn head), the depth-gated U-Net, the
-                               scratch SaltUNet and SaltLinkNet, the
-                               flax-checkpoint bridge and the pretrained
-                               encoder import
+                               scratch SaltUNet and SaltLinkNet,
+                               LargeKernelMatters, PSPNet, the stacking heads,
+                               the emptiness classifier, the int8 convs of
+                               ``model.quant_bits``, the flax-checkpoint
+                               bridge and the pretrained encoder import
 - ``salt_tpu_torch.train``     ``SegmentationRunner`` (train, eval and predict
                                steps), train state, callbacks, the fit loop,
                                the throughput probes
-- ``salt_tpu_torch.pipeline``  the ``train``, CV and ``serve`` entry points
+- ``salt_tpu_torch.pipeline``  the ``train``, CV and ``serve`` entry points,
+                               the int8 quality gate
 - ``salt_tpu_torch.tools``     the probes, A/Bs, the bench and the profiler
                                reading
 

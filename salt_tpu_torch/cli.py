@@ -14,8 +14,8 @@ Usage:
         [the same options as train]
     python -m salt_tpu_torch.cli serve --checkpoint EXP_DIR_OR_NPZ \
         --images-dir DIR [--out submission.csv] [--no-tta] \
-        [--probs-out probs.npz] [--config cfg.yaml] [--set section.field=v] \
-        [--device cuda|cpu]
+        [--probs-out probs.npz] [--int8] [--config cfg.yaml] \
+        [--set section.field=v] [--device cuda|cpu]
     python -m salt_tpu_torch.cli serve --synthetic N \
         [--checkpoint EXP_DIR_OR_NPZ] [the other serve options]
 
@@ -30,7 +30,10 @@ and a test set of max(N // 4, 8) images without masks, seed + 1) into
 fold there, and the ``predict`` ones write ``submission.csv``.
 ``serve --synthetic N`` serves N generated images (seed
 ``execution.seed``) in place of ``--images-dir``, from the checkpoint or,
-without one, from the runner's seeded initial weights. Every other
+without one, from the runner's seeded initial weights. ``serve --int8``
+sets ``model.quant_bits=8`` (the int8 convs) and, from checkpoints,
+writes ``<out>.int8_gate.json``; the CV commands with ``--set
+model.quant_bits=8`` write each fold's ``int8_gate_<name>.json``. Every other
 command runs on the CUDA card by default and fails where there is
 none, unless ``--device cpu`` is given.
 """
@@ -86,6 +89,8 @@ def main(argv=None):
                         help="also write float16 probabilities npz")
     parser.add_argument("--no-tta", action="store_true",
                         help="plain single-pass inference")
+    parser.add_argument("--int8", action="store_true",
+                        help="serve: int8 convs (model.quant_bits=8)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--synthetic", type=int, default=0, metavar="N",
@@ -115,6 +120,8 @@ def main(argv=None):
     if args.command != "serve":
         return _run(cfg, args)
     from salt_tpu_torch.pipeline.serving import serve
+    if args.int8:
+        cfg.model.quant_bits = 8
     cfg.postpro.use_tta = not args.no_tta
     print(serve(cfg, args.checkpoint, args.images_dir, args.out,
                 args.probs_out, synthetic=args.synthetic,

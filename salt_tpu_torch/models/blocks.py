@@ -1,4 +1,8 @@
-"""Building blocks of the flagship U-Net, as torch ``nn.Module``s in NCHW.
+"""Building blocks of the port's networks, as torch ``nn.Module``s in NCHW:
+the U-Nets' (ConvBnRelu, the scSE decoder, the depth gate, the fp32
+head), LargeKernelMatters' (the transposed conv, the global
+convolutional network, the boundary refinement) and PSPNet's (any-size
+bilinear resize).
 
 Counterparts of ``salt_tpu/models/blocks.py``. Submodule names copy the
 flax scope names (``Conv_0``, ``BatchNorm_0``, ``ConvBnRelu_0``,
@@ -18,7 +22,8 @@ for these integer upsampling factors, edges included; tested).
 Convolutions take a ``conv`` callable with ``F.conv2d``'s signature, the
 counterpart of the JAX package's ``conv_fn`` injection: ``F.conv2d``
 itself in the train form, ``ops.conv_pair.make_conv_fn()`` where
-``model.pallas_conv`` routes the eligible convs to the conv kernel.
+``model.pallas_conv`` routes the eligible convs to the conv kernel, and
+``models.quant.make_conv_fn(8)`` for ``model.quant_bits=8``.
 :class:`ConvBnRelu` applied to a list of branches is the JAX package's
 ``SlicedConcatConvBnRelu`` (:func:`sliced_concat_conv` its
 ``SlicedConcatConv``): the same ``Conv_0`` / ``BatchNorm_0`` parameters as
@@ -31,7 +36,8 @@ does, moves ``running_var`` towards that biased variance too
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,17 +68,69 @@ def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
+def _half_pixel_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] weights of ``jax.image.resize(method="linear")``
+    along one axis (``jax/_src/image/scale.py`` ``compute_weight_mat``, in
+    float32 as JAX computes them): a triangle kernel at the half-pixel
+    sample positions, widened by n_in / n_out when shrinking (JAX
+    antialiases), each output's weights normalised to sum to 1."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
+              * inv_scale - np.float32(0.5))
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
+    w = np.maximum(np.float32(0), np.float32(1) - x / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).T.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int, mode: str, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The [n_out, n_in] interpolation matrix of ``mode`` on ``device``,
+    made once (a host-to-device copy on every call would stall the
+    host)."""
+    m = (_align_corners_matrix(n_in, n_out) if mode == "align_corners"
+         else _half_pixel_matrix(n_in, n_out))
+    return torch.from_numpy(m).to(device, dtype)
+
+
+def _resize_by_matrices(x: torch.Tensor, out_h: int, out_w: int,
+                        mode: str) -> torch.Tensor:
+    h, w = x.shape[-2:]
+    wh = _resize_matrix(h, out_h, mode, x.device, x.dtype)
+    ww = _resize_matrix(w, out_w, mode, x.device, x.dtype)
+    y = torch.einsum("oh,bchw->bcow", wh, x)
+    return torch.einsum("pw,bcow->bcop", ww, y)
+
+
 def upsample2x(x: torch.Tensor, factor: int = 2,
                mode: str = "half_pixel") -> torch.Tensor:
     """Bilinear NCHW upsample by an integer ``factor``."""
     h, w = x.shape[-2:]
     if mode == "align_corners":
-        wh, ww = (torch.from_numpy(_align_corners_matrix(n, n * factor))
-                  .to(x.device, x.dtype) for n in (h, w))
-        y = torch.einsum("oh,bchw->bcow", wh, x)
-        return torch.einsum("pw,bcow->bcop", ww, y)
+        return _resize_by_matrices(x, h * factor, w * factor, mode)
     return F.interpolate(x, size=(h * factor, w * factor), mode="bilinear",
                          align_corners=False)
+
+
+def _pair(k: Union[int, Sequence[int]]) -> Tuple[int, int]:
+    return (k, k) if isinstance(k, int) else (int(k[0]), int(k[1]))
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    mode: str = "half_pixel") -> torch.Tensor:
+    """Bilinear NCHW resize to any (``out_h``, ``out_w``)
+    (``salt_tpu/models/blocks.py`` ``resize_bilinear`` :108-124):
+    "half_pixel" is ``jax.image.resize``'s "linear", antialiased where it
+    shrinks (:func:`_half_pixel_matrix`), "align_corners" the matrices of
+    :func:`upsample2x`; both as two small matrix products."""
+    if tuple(x.shape[-2:]) == (out_h, out_w):
+        return x
+    return _resize_by_matrices(x, out_h, out_w, mode)
 
 
 def reference_pad(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
@@ -151,44 +209,124 @@ def sliced_concat_conv(branches: Sequence[torch.Tensor], weight: torch.Tensor,
 
 
 class ConvBnRelu(nn.Module):
-    """k x k conv (stride 1) -> BN -> ReLU (``salt_tpu/models/blocks.py``
-    ``ConvBnRelu`` :133-162). Without BatchNorm the conv has a bias, as
-    flax's ``use_bias=not use_batch_norm``. SAME padding is flax's: k - 1
-    rows and columns, (k - 1) // 2 of them before, so an even k pads one
-    more after. Given a list of branches (3x3 only) it convolves their
-    implicit concat (the JAX package's ``SlicedConcatConvBnRelu``,
-    :278-297)."""
+    """kh x kw conv (stride 1) -> BN -> ReLU (``salt_tpu/models/blocks.py``
+    ``ConvBnRelu`` :133-162). ``kernel_size`` is k or (kh, kw); without
+    BatchNorm the conv has a bias, as flax's ``use_bias=not
+    use_batch_norm``, and ``use_relu=False`` leaves the ReLU out. SAME
+    padding is flax's: k - 1 rows (columns), (k - 1) // 2 of them before,
+    so an even k pads one more after. Given a list of branches (3x3 only)
+    it convolves their implicit concat (the JAX package's
+    ``SlicedConcatConvBnRelu``, :278-297)."""
 
     def __init__(self, in_channels: int, features: int,
-                 pad_mode: str = "same", kernel_size: int = 3,
-                 use_batch_norm: bool = True):
+                 pad_mode: str = "same",
+                 kernel_size: Union[int, Tuple[int, int]] = 3,
+                 use_batch_norm: bool = True, use_relu: bool = True):
         super().__init__()
         self.pad_mode = pad_mode
-        self.kernel_size = k = kernel_size
+        self.use_relu = use_relu
+        kh, kw = self.kernel_size = _pair(kernel_size)
         # an odd SAME conv pads inside the conv; otherwise F.pad first
-        self.pad_first = pad_mode == "reference" or k % 2 == 0
-        self.Conv_0 = nn.Conv2d(in_channels, features, k,
-                                padding=0 if self.pad_first else k // 2,
+        self.pad_first = pad_mode == "reference" or kh % 2 == 0 \
+            or kw % 2 == 0
+        self.Conv_0 = nn.Conv2d(in_channels, features, (kh, kw),
+                                padding=0 if self.pad_first
+                                else (kh // 2, kw // 2),
                                 bias=not use_batch_norm)
         self.BatchNorm_0 = batch_norm(features) if use_batch_norm else None
 
     def forward(self, x: Union[torch.Tensor, List[torch.Tensor]],
                 conv: Conv = F.conv2d) -> torch.Tensor:
-        k = self.kernel_size
+        kh, kw = self.kernel_size
         if isinstance(x, (list, tuple)):
-            if k != 3:
-                raise ValueError(f"a sliced concat conv is 3x3, not {k}x{k}")
+            if (kh, kw) != (3, 3):
+                raise ValueError(f"a sliced concat conv is 3x3, not "
+                                 f"{kh}x{kw}")
             y = sliced_concat_conv(x, self.Conv_0.weight, conv, self.pad_mode)
         else:
             if self.pad_mode == "reference":
-                x = reference_pad(x, k, k)
+                x = reference_pad(x, kh, kw)
             elif self.pad_first:
-                lo, hi = (k - 1) // 2, k // 2
-                x = F.pad(x, (lo, hi, lo, hi))
+                x = F.pad(x, ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
             y = apply_conv(conv, self.Conv_0, x)
         if self.BatchNorm_0 is not None:
             y = self.BatchNorm_0(y)
-        return F.relu(y)
+        return F.relu(y) if self.use_relu else y
+
+
+class DeconvConvBnRelu(nn.Module):
+    """Stride-2 3x3 transposed conv -> BN -> ReLU, doubling H and W
+    (``salt_tpu/models/blocks.py`` ``DeconvConvBnRelu`` :164-192).
+
+    flax's ``ConvTranspose`` does not flip its kernel: it is
+    ``lax.conv_transpose``, the cross-correlation of the stride-dilated
+    input (a zero between each two pixels) with the kernel, padded (2, 1)
+    on each spatial axis in "same" (``lax``'s SAME rule at k 3, stride 2)
+    and (1, 2) in ``pad_mode="reference"``. ``F.conv_transpose2d`` of the
+    spatially flipped kernel computes that sum padded (2 - p) on both
+    sides: p = 0 with the last row and column cropped gives (2, 1), p = 1
+    with ``output_padding`` 1 gives (1, 2). ``ConvTranspose_0.weight``
+    [in, out, 3, 3] holds flax's [3, 3, in, out] kernel transposed and
+    unflipped (``models.convert``)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 pad_mode: str = "same", use_relu: bool = True,
+                 use_batch_norm: bool = True):
+        super().__init__()
+        self.pad_mode = pad_mode
+        self.use_relu = use_relu
+        self.ConvTranspose_0 = nn.ConvTranspose2d(
+            in_channels, features, 3, stride=2, bias=not use_batch_norm)
+        self.BatchNorm_0 = batch_norm(features) if use_batch_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.ConvTranspose_0
+        w = m.weight.flip(2, 3)
+        if self.pad_mode == "reference":
+            y = F.conv_transpose2d(x, w, m.bias, stride=2, padding=1,
+                                   output_padding=1)
+        else:
+            y = F.conv_transpose2d(x, w, m.bias, stride=2)[..., :-1, :-1]
+        if self.BatchNorm_0 is not None:
+            y = self.BatchNorm_0(y)
+        return F.relu(y) if self.use_relu else y
+
+
+class GlobalConvolutionalNetwork(nn.Module):
+    """The factorized large kernel (``salt_tpu/models/blocks.py``
+    ``GlobalConvolutionalNetwork`` :373-393): a k x 1 then 1 x k branch
+    plus a 1 x k then k x 1 branch, each conv a :class:`ConvBnRelu`."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 use_relu: bool = False, pad_mode: str = "same"):
+        super().__init__()
+        k = kernel_size
+        for i, (c_in, shape) in enumerate(((in_channels, (k, 1)),
+                                           (features, (1, k)),
+                                           (in_channels, (1, k)),
+                                           (features, (k, 1)))):
+            self.add_module(f"ConvBnRelu_{i}", ConvBnRelu(
+                c_in, features, pad_mode, shape, use_relu=use_relu))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.ConvBnRelu_1(self.ConvBnRelu_0(x))
+        return a + self.ConvBnRelu_3(self.ConvBnRelu_2(x))
+
+
+class BoundaryRefinement(nn.Module):
+    """x + conv-BN-ReLU-conv-BN of x (``salt_tpu/models/blocks.py``
+    ``BoundaryRefinement`` :396-410)."""
+
+    def __init__(self, features: int, kernel_size: int = 3,
+                 pad_mode: str = "same"):
+        super().__init__()
+        k = kernel_size
+        self.ConvBnRelu_0 = ConvBnRelu(features, features, pad_mode, k)
+        self.ConvBnRelu_1 = ConvBnRelu(features, features, pad_mode, k,
+                                       use_relu=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.ConvBnRelu_1(self.ConvBnRelu_0(x))
 
 
 class ChannelSELayer(nn.Module):

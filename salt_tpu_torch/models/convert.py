@@ -5,7 +5,10 @@ npz keyed by '/'-joined flax paths (``core/experiment.py``). The port's
 modules copy the flax scope names, so a key maps to a state_dict key by
 joining the same names with '.', and each leaf converts as follows:
 
-- conv ``kernel`` HWIO -> ``weight`` OIHW;
+- conv ``kernel`` HWIO -> ``weight`` OIHW; a transposed conv's
+  (``ConvTranspose_*``) [kh, kw, in, out] -> ``nn.ConvTranspose2d``'s
+  [in, out, kh, kw], unflipped (``blocks.DeconvConvBnRelu`` flips it);
+- a PReLU's scalar ``prelu_alpha`` -> the module's 0-d ``prelu_alpha``;
 - ``Dense`` ``kernel`` [in, out] -> ``Linear`` ``weight`` [out, in] (the
   spatial SE ``Dense`` is a 1x1 conv: [out, in, 1, 1]);
 - ``bias`` -> ``bias``;
@@ -50,7 +53,9 @@ def from_flax_flat(arrays: Dict[str, np.ndarray]) -> "OrderedDict[str, torch.Ten
             if leaf == "var":
                 sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
         elif leaf == "kernel" and value.ndim == 4:
-            sd[f"{name}.weight"] = torch.tensor(value.transpose(3, 2, 0, 1))
+            axes = ((2, 3, 0, 1) if path[-1].startswith("ConvTranspose")
+                    else (3, 2, 0, 1))
+            sd[f"{name}.weight"] = torch.tensor(value.transpose(axes))
         elif leaf == "kernel" and value.ndim == 2:
             w = value.T
             if "SpatialSELayer" in scope:
@@ -58,6 +63,8 @@ def from_flax_flat(arrays: Dict[str, np.ndarray]) -> "OrderedDict[str, torch.Ten
             sd[f"{name}.weight"] = torch.tensor(w)
         elif leaf == "bias":
             sd[f"{name}.bias"] = torch.tensor(value)
+        elif leaf == "prelu_alpha" and value.ndim == 0:
+            sd[f"{name}.prelu_alpha"] = torch.tensor(value)
         else:
             raise KeyError(f"unexpected checkpoint leaf {key!r}")
     return sd
@@ -91,13 +98,17 @@ def to_flax_flat(model: nn.Module) -> Dict[str, np.ndarray]:
             out[f"params/{scope}/bias"] = arr(m.bias)
             out[f"batch_stats/{scope}/mean"] = arr(m.running_mean)
             out[f"batch_stats/{scope}/var"] = arr(m.running_var)
-        elif isinstance(m, (nn.Conv2d, nn.Linear)):
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = arr(m.weight)
-            if name.rsplit(".", 1)[-1].startswith("Dense"):
+            if isinstance(m, nn.ConvTranspose2d):
+                kernel = np.ascontiguousarray(w.transpose(2, 3, 0, 1))
+            elif name.rsplit(".", 1)[-1].startswith("Dense"):
                 kernel = np.ascontiguousarray(w.reshape(w.shape[0], -1).T)
             else:
                 kernel = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
             out[f"params/{scope}/kernel"] = kernel
             if m.bias is not None:
                 out[f"params/{scope}/bias"] = arr(m.bias)
+        if isinstance(getattr(m, "prelu_alpha", None), nn.Parameter):
+            out[f"params/{scope}/prelu_alpha"] = arr(m.prelu_alpha)
     return out

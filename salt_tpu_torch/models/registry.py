@@ -3,17 +3,19 @@
 (random weights and BN statistics, for the parity and serve checks) and
 ``init_flax_like`` (flax's default initializers, the start of training).
 
-The port builds the U-Net family (``UNetResNet`` 18-152,
-``UNetSeResNet``, ``UNetSeResNetXt``, ``UNetDenseNet``), the depth-gated
-``UNetResNetWithDepth`` and the scratch ``SaltUNet`` / ``SaltLinkNet``,
-with the JAX builders' coercions of ``encoder_depth`` (:55-115); the
-five architectures of :data:`NOT_PORTED` raise ``NotImplementedError``
-naming the ROADMAP item that ports them. ``model.pallas_conv`` selects
-the infer form's conv callable (:func:`infer_conv_fn`, the counterpart
-of ``_conv_fn``, ``salt_tpu/models/registry.py:35-52``); it reaches the
-U-Nets only, as the JAX package hands the scratch nets no conv
-callable. The depth model takes no ``pool0``, ``hypercolumn_impl`` or
-``decoder_impl``, as its JAX builder passes none.
+The port builds every architecture of the JAX registry: the U-Net
+family (``UNetResNet`` 18-152, ``UNetSeResNet``, ``UNetSeResNetXt``,
+``UNetDenseNet``), the depth-gated ``UNetResNetWithDepth``, the scratch
+``SaltUNet`` / ``SaltLinkNet``, ``LargeKernelMatters``, ``PSPNet``,
+``StackingFCN`` / ``StackingFCNWithDepth`` and ``EmptinessClassifier``,
+with the arguments and ``encoder_depth`` coercions of JAX's build
+functions (:55-158). ``model.pallas_conv`` and ``model.quant_bits``
+select the infer form's conv callable (:func:`infer_conv_fn`, the
+counterpart of ``_conv_fn``, ``salt_tpu/models/registry.py:35-52``); it
+reaches the U-Nets and the depth net only, as the JAX package hands the
+other architectures no conv callable. The depth model takes no
+``pool0``, ``hypercolumn_impl`` or ``decoder_impl``, as its JAX build
+function passes none.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from salt_tpu_torch.core.config import ModelConfig
+from salt_tpu_torch.models.quant import make_conv_fn as make_quant_conv_fn
 from salt_tpu_torch.ops.conv_pair import make_conv_fn
 
 _MODE_CHOICES = {
@@ -36,9 +39,8 @@ _MODE_CHOICES = {
     "pallas_conv": ("off", "on", "auto"),
 }
 
-#: architectures of the JAX registry the port does not build yet
-NOT_PORTED = ("LargeKernelMatters", "PSPNet", "StackingFCN",
-              "StackingFCNWithDepth", "EmptinessClassifier")
+#: architectures of the JAX registry the port does not build: none
+NOT_PORTED = ()
 #: the U-Nets: their factory in ``models.unet``, the ``encoder_depth``s
 #: their JAX builder keeps and the one it takes otherwise (None: 0 -> 34)
 _UNETS = {"UNetResNet": (None, None),
@@ -49,13 +51,75 @@ _UNETS = {"UNetResNet": (None, None),
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def _lkm(cfg: ModelConfig) -> nn.Module:
+    from salt_tpu_torch.models.large_kernel_matters import \
+        LargeKernelMatters
+    return LargeKernelMatters(num_classes=cfg.num_classes,
+                              encoder_depth=cfg.encoder_depth or 34,
+                              kernel_size=cfg.kernel_size,
+                              internal_channels=21, use_relu=True,
+                              pool0=cfg.pool0, pad_mode=cfg.conv_pad_mode)
+
+
+def _pspnet(cfg: ModelConfig) -> nn.Module:
+    from salt_tpu_torch.models.pspnet import PSPNet
+    return PSPNet(num_classes=cfg.num_classes,
+                  encoder_depth=cfg.encoder_depth or 34,
+                  use_hypercolumn=cfg.use_hypercolumn, pool0=cfg.pool0,
+                  pad_mode=cfg.conv_pad_mode,
+                  upsample_mode=cfg.upsample_mode)
+
+
+def _stacking(cfg: ModelConfig) -> nn.Module:
+    from salt_tpu_torch.models import stacking
+    cls = (stacking.StackingFCNWithDepth
+           if cfg.architecture == "StackingFCNWithDepth"
+           else stacking.StackingFCN)
+    return cls(num_classes=cfg.num_classes,
+               input_model_nr=cfg.input_model_nr, filter_nr=cfg.filter_nr,
+               dropout_2d=cfg.dropout_2d, pad_mode=cfg.conv_pad_mode)
+
+
+def _emptiness(cfg: ModelConfig) -> nn.Module:
+    from salt_tpu_torch.models.emptiness import EmptinessClassifier
+    return EmptinessClassifier(num_classes=cfg.num_classes,
+                               encoder_depth=18)
+
+
+def _salt_unet(cfg: ModelConfig) -> nn.Module:
+    from salt_tpu_torch.models.salt_unet import SaltUNet
+    return SaltUNet(num_classes=cfg.num_classes, n_filters=cfg.n_filters,
+                    conv_kernel=cfg.conv_kernel,
+                    repeat_blocks=cfg.repeat_blocks,
+                    dropout_2d=cfg.dropout_2d)
+
+
+def _salt_linknet(cfg: ModelConfig) -> nn.Module:
+    from salt_tpu_torch.models.salt_unet import SaltLinkNet
+    return SaltLinkNet(num_classes=cfg.num_classes, n_filters=cfg.n_filters,
+                       repeat_blocks=cfg.repeat_blocks)
+
+
+#: the architectures that take no conv callable, by their build functions
+_OTHERS = {"SaltUNet": _salt_unet, "SaltLinkNet": _salt_linknet,
+           "LargeKernelMatters": _lkm, "PSPNet": _pspnet,
+           "StackingFCN": _stacking, "StackingFCNWithDepth": _stacking,
+           "EmptinessClassifier": _emptiness}
+#: every architecture the registry builds (the JAX ``ARCHITECTURES``)
+ARCHITECTURES = (*_UNETS, "UNetResNetWithDepth", *_OTHERS)
+
+
 def infer_conv_fn(cfg: ModelConfig):
-    """``F.conv2d`` for ``pallas_conv="off"``; for "on" and "auto" the
-    dispatch that sends the eligible convs to the conv kernel. "auto"
-    means the kernel wherever the tensors lie on the card, as it means
-    the Pallas kernel on any device but a CPU in the JAX package; on the
-    CPU both take the kernel's plain version."""
-    return F.conv2d if cfg.pallas_conv == "off" else make_conv_fn()
+    """The infer form's conv callable: ``F.conv2d``, or with
+    ``quant_bits=8`` the int8 convs of ``models.quant.make_conv_fn``; for
+    ``pallas_conv`` "on" and "auto" the dispatch that sends the eligible
+    convs to the conv kernel and every other one to the former, as the
+    JAX package's ``make_pallas_conv_fn(inner)`` composes the Pallas
+    kernel with AQT. "auto" means the kernel wherever the tensors lie on
+    the card, as it means the Pallas kernel on any device but a CPU in
+    the JAX package; on the CPU both take the kernel's plain version."""
+    inner = make_quant_conv_fn(cfg.quant_bits) or F.conv2d
+    return inner if cfg.pallas_conv == "off" else make_conv_fn(inner=inner)
 
 
 def build_model(cfg: ModelConfig) -> nn.Module:
@@ -65,28 +129,12 @@ def build_model(cfg: ModelConfig) -> nn.Module:
         if val not in choices:
             raise ValueError(f"model.{field}={val!r}: expected one of "
                              f"{choices}")
-    if cfg.architecture in NOT_PORTED:
-        raise NotImplementedError(
-            f"model.architecture={cfg.architecture!r} is not ported yet "
-            "(ROADMAP.md Queue A item 13: LargeKernelMatters, PSPNet, "
-            "StackingFCN, StackingFCNWithDepth, EmptinessClassifier)")
-    if cfg.architecture not in ("SaltUNet", "SaltLinkNet",
-                                "UNetResNetWithDepth", *_UNETS):
-        raise KeyError(f"unknown architecture {cfg.architecture!r}")
-    if cfg.quant_bits:
-        raise NotImplementedError("model.quant_bits: int8 serving is not "
-                                  "ported yet (ROADMAP.md Queue A item 15)")
-    if cfg.architecture == "SaltUNet":
-        from salt_tpu_torch.models.salt_unet import SaltUNet
-        return SaltUNet(num_classes=cfg.num_classes, n_filters=cfg.n_filters,
-                        conv_kernel=cfg.conv_kernel,
-                        repeat_blocks=cfg.repeat_blocks,
-                        dropout_2d=cfg.dropout_2d).eval()
-    if cfg.architecture == "SaltLinkNet":
-        from salt_tpu_torch.models.salt_unet import SaltLinkNet
-        return SaltLinkNet(num_classes=cfg.num_classes,
-                           n_filters=cfg.n_filters,
-                           repeat_blocks=cfg.repeat_blocks).eval()
+    if cfg.architecture not in ARCHITECTURES:
+        raise KeyError(f"unknown architecture {cfg.architecture!r}; "
+                       f"choose from {sorted(ARCHITECTURES)}")
+    make_quant_conv_fn(cfg.quant_bits)       # refuses widths other than 8
+    if cfg.architecture in _OTHERS:
+        return _OTHERS[cfg.architecture](cfg).eval()
     common = dict(num_classes=cfg.num_classes,
                   use_hypercolumn=cfg.use_hypercolumn,
                   dropout_2d=cfg.dropout_2d, pad_mode=cfg.conv_pad_mode,
@@ -116,21 +164,35 @@ def takes_depth(architecture: str) -> bool:
     return architecture in ("UNetResNetWithDepth", "StackingFCNWithDepth")
 
 
+def _fan_in(module: nn.Module) -> int:
+    """The fan-in of flax's kernel initializers: inputs x kernel taps (a
+    transposed conv's weight is [in, out, kh, kw])."""
+    shape = module.weight.shape
+    if isinstance(module, nn.ConvTranspose2d):
+        return int(shape[0] * np.prod(shape[2:]))
+    return int(np.prod(shape[1:]))
+
+
+_KERNELS = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
+
+
 @torch.no_grad()
 def init_seeded(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter and BN statistic from ``numpy`` seed ``seed``:
     conv/linear weights N(0, 1/fan_in), biases 0.05 N(0, 1), BN scale and
-    variance U(0.8, 1.2), BN shift and mean 0.1 N(0, 1)."""
+    variance U(0.8, 1.2), BN shift and mean 0.1 N(0, 1), a PReLU's alpha
+    0.25 + 0.05 N(0, 1)."""
     rng = np.random.RandomState(seed)
 
     def fill(t: torch.Tensor, values: np.ndarray):
-        t.copy_(torch.from_numpy(values.astype(np.float32)))
+        t.copy_(torch.from_numpy(np.asarray(values, np.float32)))
 
     for module in model.modules():
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
+        if isinstance(getattr(module, "prelu_alpha", None), nn.Parameter):
+            fill(module.prelu_alpha, 0.25 + 0.05 * rng.randn())
+        if isinstance(module, _KERNELS):
             w = module.weight
-            fan_in = int(np.prod(w.shape[1:]))
-            fill(w, rng.randn(*w.shape) / np.sqrt(fan_in))
+            fill(w, rng.randn(*w.shape) / np.sqrt(_fan_in(module)))
             if module.bias is not None:
                 fill(module.bias, 0.05 * rng.randn(*module.bias.shape))
         elif isinstance(module, nn.BatchNorm2d):
@@ -147,14 +209,15 @@ def init_flax_like(model: nn.Module, seed: int) -> nn.Module:
     """Flax's default initialization, drawn from ``torch.Generator`` seed
     ``seed``: conv and dense kernels ``lecun_normal`` (a normal truncated
     at +-2 std, std sqrt(1 / fan_in) / 0.8796), biases 0, BN scale 1,
-    shift 0, mean 0, variance 1. The distribution of the JAX package's
-    init, not its bits."""
+    shift 0, mean 0, variance 1, a PReLU's alpha 0.25. The distribution
+    of the JAX package's init, not its bits."""
     g = torch.Generator().manual_seed(seed)
     for module in model.modules():
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
+        if isinstance(getattr(module, "prelu_alpha", None), nn.Parameter):
+            module.prelu_alpha.fill_(0.25)
+        if isinstance(module, _KERNELS):
             w = module.weight
-            fan_in = int(np.prod(w.shape[1:]))
-            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            std = (1.0 / _fan_in(module)) ** 0.5 / 0.87962566103423978
             nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                   generator=g)
             if module.bias is not None:

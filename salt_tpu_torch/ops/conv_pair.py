@@ -14,8 +14,9 @@ OIHW weights.
   the kernel reads them; the CPU tests hold it against the JAX kernel.
 - :func:`make_conv_fn` returns an ``F.conv2d``-compatible callable that
   sends every eligible call to ``ops.conv_kernel.conv3x3_pair_kernel``
-  (the CUDA kernel on the card, this plain version on the CPU) and
-  returns exactly what ``F.conv2d`` returns for every other call.
+  (the CUDA kernel on the card, this plain version on the CPU) and every
+  other call to ``inner``: ``F.conv2d`` by default, or the int8 convs of
+  ``model.quant_bits=8`` (the JAX dispatch's ``inner``, AQT's conv).
   Geometry and dtype decide the route, and an A/B scope may narrow it to
   one resolution band; nothing falls back on failure.
 
@@ -133,9 +134,12 @@ def in_scope(scope: str, out_h: int) -> bool:
                 or (scope == "res128" and out_h < 128))
 
 
-def make_conv_fn(scope: Optional[str] = None) -> Callable[..., torch.Tensor]:
+def make_conv_fn(scope: Optional[str] = None,
+                 inner: Callable[..., torch.Tensor] = F.conv2d
+                 ) -> Callable[..., torch.Tensor]:
     """The ``F.conv2d``-compatible callable of ``model.pallas_conv`` "on"
-    and "auto". ``scope`` ("all", "res64" or "res128"; :data:`SCOPES`)
+    and "auto": the eligible convs to the kernel, every other one to
+    ``inner``. ``scope`` ("all", "res64" or "res128"; :data:`SCOPES`)
     restricts the kernel to one resolution band, as the JAX package's
     ``SALT_TPU_PALLAS_CONV_SCOPE`` does for its A/B harness; None reads
     that variable once, here (unset: "all")."""
@@ -155,8 +159,7 @@ def make_conv_fn(scope: Optional[str] = None) -> Callable[..., torch.Tensor]:
                                              x.shape[2] - 2 * halo):
             halo = None
         if halo is None:
-            return F.conv2d(x, weight, bias, stride, padding, dilation,
-                            groups)
+            return inner(x, weight, bias, stride, padding, dilation, groups)
         xc = x.to(dtype).contiguous(memory_format=torch.channels_last)
         return conv_kernel.conv3x3_pair_kernel(xc, weight.to(dtype),
                                                halo=halo)

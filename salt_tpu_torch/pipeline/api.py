@@ -20,13 +20,17 @@
   port's own Adam state, or the optax Adam state of one the JAX package
   wrote), ``execution.fine_tuning`` restarts from ``best``.
 
+- With ``model.quant_bits`` set the CV loop runs the int8 quality gate
+  on every fold (``pipeline/quality.py``, JAX ``pipeline/api.py:309,
+  351-362``): its validation probabilities are the int8 path's, and a
+  float runner, made once at the first fold, predicts the same split.
+
 Not ported yet, each raising ``NotImplementedError``: auxiliary data
-(ROADMAP.md Queue A item 16), ``parallel.fold_parallel`` (item 17) and the
-int8 gate of ``model.quant_bits`` (item 15, refused by the model
-registry).
+(ROADMAP.md Queue A item 16) and ``parallel.fold_parallel`` (item 17).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -286,6 +290,7 @@ def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
     oof_images: List[np.ndarray] = []
     test_preds: List[np.ndarray] = []
     runner = SegmentationRunner(config, device)
+    runner_fp = None                   # the int8 gate's float runner
     for fold_id, (train_idx, valid_idx) in enumerate(
             cv.split(bundle.meta["z"].values)):
         name = add_fold_suffix(NETWORK, fold_id)
@@ -300,6 +305,14 @@ def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
         y_pred = _binarize(probs_valid, config.postpro.threshold_masks)
         iou, iout = calculate_scores(list(valid_b.masks), y_pred)
         logger.info("Fold %d IOU %s IOUT %s", fold_id, iou, iout)
+        if config.model.quant_bits:
+            from salt_tpu_torch.pipeline.quality import run_fold_int8_gate
+            if runner_fp is None:
+                runner_fp = SegmentationRunner(config.replace(
+                    model=dataclasses.replace(config.model, quant_bits=0)),
+                    device)
+            run_fold_int8_gate(config, experiment, name, valid_b,
+                               runner_fp, probs_valid)
         fold_iou.append(iou)
         fold_iout.append(iout)
         oof_ids.extend(valid_b.meta["id"].tolist())

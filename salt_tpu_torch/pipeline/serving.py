@@ -18,6 +18,12 @@ weights (``SegmentationRunner.init_state``), as the JAX package does.
 A depth model is fed depth 0 for every image, as the JAX package's
 serve does (:320-324): a served image carries no depth.
 
+With ``model.quant_bits`` set (``cli serve --int8``) the infer form runs
+the int8 convs, and serving from checkpoints writes the int8 provenance
+next to the submission (``<out>.int8_gate.json``: the checkpoints'
+hashes and the matching quality-gate artifacts,
+``pipeline/quality.py::write_serve_provenance``; JAX :389-394).
+
 Numerics: fold probabilities accumulate and threshold in fp32; the
 optional probability archive is stored float16.
 """
@@ -189,7 +195,8 @@ def serve(config: Config, checkpoint: str, images_dir: str,
           device: Union[str, torch.device] = "cuda") -> dict:
     """Run the inference stack and write the submission. Returns
     {"n", "images_per_sec", "submission", "seconds", "batches",
-    "warmup_batches"} (+ "probs_out"): ``images_per_sec`` is images x
+    "warmup_batches"} (+ "probs_out", + "int8_provenance" when int8 serves
+    checkpoints): ``images_per_sec`` is images x
     models over the timed loop's seconds, ``batches`` the forward batches
     of the timed loop (batches x models), ``warmup_batches`` those of the
     untimed warm-up. ``synthetic`` > 0 serves that many generated images
@@ -311,4 +318,8 @@ def serve(config: Config, checkpoint: str, images_dir: str,
               "submission": out_csv, "seconds": dt, **counts}
     if prob_writer is not None:
         result["probs_out"] = prob_writer.path
+    if config.model.quant_bits and ckpts:
+        from salt_tpu_torch.pipeline.quality import write_serve_provenance
+        result["int8_provenance"] = write_serve_provenance(
+            out_csv, ckpts, config.model.quant_bits, checkpoint)
     return result

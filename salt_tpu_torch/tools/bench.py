@@ -4,28 +4,30 @@
     python -m salt_tpu_torch.tools.bench [--iters 25] [--windows 3] \
         [--train-iters 15] [--profile-steps 5]
 
-- ``flagship_tta_bf16``: the flagship UNetResNet34 (seeded weights,
-  bf16, the infer form), hflip-TTA images/s at batch 64
-  (``train.throughput.measure_tta_throughput``; bench.py:241-243);
+- ``flagship_tta_int8``, bench.py's headline: the flagship UNetResNet34
+  (seeded weights, bf16, the infer form with ``model.quant_bits=8``: the
+  int8 quantize and conv kernels, ``pallas_conv`` "off", the sum forms),
+  hflip-TTA images/s at batch 64 (``train.throughput.
+  measure_tta_throughput``; bench.py:213-236);
+- ``flagship_tta_bf16``: the same without int8 (bench.py:241-243);
 - ``flagship_train``: train images/s at batch 128, augmentation +
   forward + Lovász + backward + Adam (bench.py:55-73);
 - ``salt_unet16_tta``: SaltUNet (16 filters, 4 levels), hflip TTA at
   batch 64 (bench.py:243-246);
-- ``serve_synthetic_2048``: ``serve(cfg, "", "", synthetic=2048)`` at
-  batch 64 with the runner's seeded weights and, as in bench.py, the
-  config's default of no TTA: images/s over serve's timed loop (upload,
-  forward, threshold, mask download; bench.py:90-101);
-- ``breakdown``: for the TTA step (batch 64) and the train step (batch
-  128), host wall and device ms per step, the busy share, kernel
-  launches per step, the top kernels, and the hand kernels on the step
-  (preprocess; the Lovász sort), from ``tools/profiling.step_breakdown``;
+- ``serve_synthetic_2048``: ``serve(cfg, "", "", synthetic=2048)`` of
+  the int8 flagship, as bench.py serves it, at batch 64 with the
+  runner's seeded weights and, as in bench.py, the config's default of no
+  TTA: images/s over serve's timed loop (upload, forward, threshold, mask
+  download; bench.py:90-101);
+- ``breakdown``: for the TTA step in bf16 and in int8 (batch 64) and the
+  train step (batch 128), host wall and device ms per step, the busy
+  share, kernel launches per step, the top kernels, and the hand kernels
+  on the step (preprocess; int8 quantize and conv; the Lovász sort), from
+  ``tools/profiling.step_breakdown``;
 - ``device``: the card's name and power limit (nvidia-smi).
 
-bench.py's headline is the flagship at int8 (``model.quant_bits=8``),
-which the port cannot run yet: ``flagship_tta_int8`` is null, and it,
-the distilled students and the multichip probe are listed under
-``not_ported`` with the ROADMAP item that ports each. bench.py's
-``serve_synthetic_2048`` serves the int8 flagship; here it is bf16.
+The distilled students and the multichip probe are listed under
+``not_ported`` with the ROADMAP item that ports each.
 
 Every measurement runs: one that fails fails the run. ``--device``
 defaults to ``cuda`` and raises without a card; ``--device cpu --tiny``
@@ -53,7 +55,6 @@ from salt_tpu_torch.train.throughput import (measure_tta_throughput,
                                              measure_train_throughput)
 
 NOT_PORTED = {
-    "flagship_tta_int8": "not ported: ROADMAP Queue A item 15 (int8 serving)",
     "distill": "not ported: ROADMAP Queue A item 16 (the distilled students "
                "and their serve rate)",
     "multichip_dp_tta": "not ported: ROADMAP Queue A item 17 (data "
@@ -61,6 +62,9 @@ NOT_PORTED = {
 }
 #: the hand kernels each profiled step launches
 STEP_KERNELS = {"tta_step": ("preprocess_inference_kernel",),
+                "tta_step_int8": ("preprocess_inference_kernel",
+                                  "absmax_kernel", "quant_kernel",
+                                  "int8_conv_kernel"),
                 "train_step": (KERNEL_PREFIX,)}
 
 
@@ -82,15 +86,16 @@ def parse_args(argv=None):
     return args
 
 
-def bench_config(tiny: bool):
-    """bench.py's configuration without int8: the flagship, bf16,
-    inference batch 64, train batch 128; ``tiny``: UNetResNet18, fp32,
+def bench_config(tiny: bool, quant_bits: int = 0):
+    """bench.py's configuration: the flagship, bf16, inference batch 64,
+    train batch 128, ``model.quant_bits``; ``tiny``: UNetResNet18, fp32,
     batch 2."""
     cfg = default_config()
     cfg.model.architecture = "UNetResNet"
     cfg.training.dtype = "bfloat16"
     cfg.training.batch_size_inference = 64
     cfg.training.batch_size_train = 128
+    cfg.model.quant_bits = quant_bits
     if tiny:
         cfg.model.encoder_depth = 18
         cfg.training.dtype = "float32"
@@ -141,7 +146,21 @@ def main(argv=None) -> dict:
     line["breakdown"] = {"tta_step": breakdown(
         "tta_step", lambda i: runner.predict_tta_step(model, images),
         bs_inf)}
-    del model, images
+    del model
+
+    cfg_q = bench_config(args.tiny, quant_bits=8)
+    runner_q = SegmentationRunner(cfg_q, device)
+    model_q = runner_q.init_model(0)
+    line["flagship_tta_int8"] = {
+        "value": measure_tta_throughput(runner_q, model_q, bs_inf,
+                                        args.iters, args.windows),
+        "unit": rate, "batch": bs_inf, "dtype": cfg_q.training.dtype,
+        "quant_bits": cfg_q.model.quant_bits,
+        "pallas_conv": cfg_q.model.pallas_conv}
+    line["breakdown"]["tta_step_int8"] = breakdown(
+        "tta_step_int8", lambda i: runner_q.predict_tta_step(model_q, images),
+        bs_inf)
+    del model_q, images
 
     state = runner.init_state(0)
     line["flagship_train"] = {
@@ -171,7 +190,7 @@ def main(argv=None) -> dict:
 
     n_serve = 8 if args.tiny else 2048
     with tempfile.TemporaryDirectory() as tmp:
-        served = serve(cfg, "", "", os.path.join(tmp, "sub.csv"),
+        served = serve(cfg_q, "", "", os.path.join(tmp, "sub.csv"),
                        synthetic=n_serve, device=device)
     line["serve_synthetic_2048"] = {
         "value": served["images_per_sec"],
@@ -179,10 +198,9 @@ def main(argv=None) -> dict:
         "images": n_serve, "batch": bs_inf, "seconds": served["seconds"],
         "batches": served["batches"],
         "warmup_batches": served["warmup_batches"],
-        "tta": cfg.postpro.use_tta,
+        "tta": cfg_q.postpro.use_tta, "quant_bits": cfg_q.model.quant_bits,
         "note": "in-memory synthetic images, seeded weights; upload + "
                 "forward + mask download in the timed loop"}
-    line["flagship_tta_int8"] = None
     line["not_ported"] = NOT_PORTED
     print(json.dumps(line), flush=True)
     return line

@@ -3,13 +3,14 @@ for every (architecture, encoder_depth) the JAX registry builds,
 ``to_flax_flat(build_model(cfg))`` has exactly the flat keys and shapes
 of the flax model's variables (traced with ``jax.eval_shape``, which
 compiles nothing), so either package loads the other's ``best.npz``.
-Also the registry's ``encoder_depth`` coercions, ``takes_depth`` and the
-five architectures still unported."""
+Also the registry's ``encoder_depth`` coercions, ``takes_depth`` and that
+no architecture is left unported."""
 import pytest
 import torch
 
 from torch_parity import arch_configs, check_keys_and_shapes
 
+from salt_tpu.models.registry import ARCHITECTURES as jax_architectures
 from salt_tpu.models.registry import takes_depth as jax_takes_depth
 from salt_tpu_torch.models.registry import (NOT_PORTED, build_model,
                                             init_seeded, takes_depth)
@@ -66,13 +67,12 @@ def test_depth_model_ignores_pool0_and_the_sum_forms():
 
 
 def test_not_ported_names_the_five_left():
-    assert set(NOT_PORTED) == {"LargeKernelMatters", "PSPNet",
-                               "StackingFCN", "StackingFCNWithDepth",
-                               "EmptinessClassifier"}
-    for arch in NOT_PORTED:
+    """None is left: every name of the JAX registry builds, the five
+    that this test once named unported among them."""
+    assert NOT_PORTED == ()
+    for arch in jax_architectures:
         _, pcfg = arch_configs(arch, 34)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            build_model(pcfg.model)
+        assert isinstance(build_model(pcfg.model), torch.nn.Module), arch
     for arch in ("UNetResNetWithDepth", "StackingFCNWithDepth",
                  "UNetResNet", "UNetDenseNet", "SaltUNet"):
         assert takes_depth(arch) == jax_takes_depth(arch)

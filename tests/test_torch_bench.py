@@ -35,15 +35,17 @@ def test_bench_line_keys_on_the_cpu(capsys):
         == json.loads(json.dumps(line))
     assert set(line) == LINE_KEYS
     assert line["device"]["platform"] == "cpu"
-    assert line["flagship_tta_int8"] is None
-    assert set(line["not_ported"]) == {"flagship_tta_int8", "distill",
-                                       "multichip_dp_tta"}
-    assert all("ROADMAP Queue A item" in v
-               for v in line["not_ported"].values())
-    for key in ("flagship_tta_bf16", "flagship_train", "salt_unet16_tta",
-                "serve_synthetic_2048"):
+    assert line["flagship_tta_int8"]["quant_bits"] == 8
+    assert line["flagship_tta_int8"]["pallas_conv"] == "off"
+    assert line["serve_synthetic_2048"]["quant_bits"] == 8
+    assert set(line["not_ported"]) == {"distill", "multichip_dp_tta"}
+    assert [v.split("item ")[1][:2] for v in line["not_ported"].values()] \
+        == ["16", "17"]
+    for key in ("flagship_tta_bf16", "flagship_tta_int8", "flagship_train",
+                "salt_unet16_tta", "serve_synthetic_2048"):
         assert line[key]["value"] > 0 and "chip" not in line[key]["unit"]
-    assert set(line["breakdown"]) == {"tta_step", "train_step"}
+    assert set(line["breakdown"]) == {"tta_step", "tta_step_int8",
+                                      "train_step"}
     assert all("not_measured" in v for v in line["breakdown"].values())
 
 

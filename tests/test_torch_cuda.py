@@ -3,8 +3,9 @@ CUDA kernels and the conv and matmul probe kernels against their plain
 versions (the preprocess kernel also at B 0, on extreme edge bytes, on an
 unaligned input and on a side stream), their launch counts and input
 checks, a small serve step on the
-card against the CPU, a predict step through the conv kernel, and one
-bf16 train step.
+card against the CPU, a predict step through the conv kernel, one bf16
+train step, and the int8 quantize and conv kernels against their plain
+versions and the int8 infer form against the CPU.
 Marked ``cuda``; they skip where CUDA is absent and run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -754,12 +755,21 @@ def test_validation_image_monitor_on_card(cuda, tmp_path):
 def test_bench_tiny_on_card(cuda):
     """The bench tool at its tiny size on the card: every key, positive
     rates, and the breakdown measured with the preprocess kernel once per
-    TTA step and the sort kernel in the train step."""
+    TTA step, the int8 kernels in the int8 TTA step and serve (41 convs a
+    forward at depth 18, two quantize calls each) and the sort kernel in
+    the train step."""
+    from salt_tpu_torch.ops import int8_conv as ic
     from salt_tpu_torch.tools import bench
+    ic.conv_launches = ic.quantize_launches = 0
     line = bench.main(["--tiny", "--iters", "2", "--windows", "1",
                        "--train-iters", "2", "--profile-steps", "2"])
     assert line["device"]["platform"] == "gpu"
-    assert line["flagship_tta_int8"] is None
+    assert line["flagship_tta_int8"]["value"] > 0
+    # exact in the counters; the profiler may lose a few events a step
+    assert ic.conv_launches > 0 and ic.conv_launches % 41 == 0
+    assert ic.quantize_launches == 2 * ic.conv_launches
+    int8 = line["breakdown"]["tta_step_int8"]["kernels"]
+    assert int8["int8_conv_kernel"]["launches_per_step"] > 0
     tta = line["breakdown"]["tta_step"]
     train = line["breakdown"]["train_step"]
     assert tta["device_ms"] > 0 and 0 < tta["busy_share"]
@@ -779,3 +789,177 @@ def test_whole_session_kernel_ms_on_card(cuda):
                    launches_per_call=1)
     bound = (48 * 101 * 101 + 48 * 128 * 128 * 3 * 2) / 3.35e12 * 1e3
     assert ms > bound
+
+
+def _int8_rows(r, n, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(r, n, generator=g) * torch.exp(
+        torch.randn(r, 1, generator=g))
+    x[0, :5] = torch.tensor([0.0, -0.0, 3.0, -3.0, 1e-3])
+    if r > 2:
+        x[2] = 0.0                       # a zero row: scale 1 / 127.5
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("r,n", [(48, 64 * 64 * 64), (64, 576), (7, 147),
+                                 (3, 8193), (512, 4608), (1, 3 * 128 * 128)])
+def test_int8_quant_kernel_is_bit_exact(cuda, r, n, dtype):
+    """The quantize kernel's int8 values and fp32 scales equal its plain
+    version's, on the card and on the CPU, bit for bit (vector and
+    scalar loads, one and several chunks a row, a zero row)."""
+    from salt_tpu_torch.ops import int8_conv as ic
+    rows = _int8_rows(r, n, dtype, seed=r + n)
+    before = ic.quantize_launches
+    q, s = ic.quantize_rows(rows.to(cuda))
+    torch.cuda.synchronize()
+    assert ic.quantize_launches == before + 1
+    for ref_q, ref_s in (ic.quantize_rows_plain(rows.to(cuda)),
+                         ic.quantize_rows_plain(rows)):
+        assert torch.equal(q.cpu(), ref_q.cpu())
+        assert torch.equal(s.cpu(), ref_s.cpu())
+    assert int(q.abs().max()) == 127
+
+
+#: (batch, C, H, W, O, k, stride, padding, groups): the stem (7x7 s2 over
+#: 3 channels, the byte gather), 3x3 s1 / s2, 1x1 s2, SE-ResNeXt's 32
+#: groups of 4 and of 16 channels, ragged pixels and output channels
+INT8_CONVS = [(4, 3, 64, 64, 64, 7, 2, 3, 1), (3, 64, 32, 32, 64, 3, 1, 1, 1),
+              (2, 64, 17, 15, 128, 3, 2, 1, 1), (2, 64, 16, 16, 128, 1, 2, 0, 1),
+              (2, 128, 16, 16, 128, 3, 1, 1, 32),
+              (2, 512, 8, 8, 512, 3, 2, 1, 32), (3, 48, 9, 11, 40, 3, 1, 1, 1),
+              (1, 320, 128, 128, 64, 3, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,c,h,w,o,k,s,p,g", INT8_CONVS)
+def test_int8_conv_kernel_matches_plain_version(cuda, b, c, h, w, o, k, s, p,
+                                                g, dtype):
+    """The int8 conv kernel against its plain version (float64 conv of the
+    integers, the same dequantization) on the same quantized operands:
+    within one ulp of ``dtype`` (the s32 sums are exact and the two fp32
+    products the same, so the two agree bit for bit but for the order of
+    nothing)."""
+    from salt_tpu_torch.ops import int8_conv as ic
+    gen = torch.Generator().manual_seed(b * c + o)
+    x = (torch.randn(b, c, h, w, generator=gen) * 2).to(dtype)
+    wt = (torch.randn(o, c // g, k, k, generator=gen)
+          / (k * k * c / g) ** 0.5).to(dtype)
+    xd = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    xq, sx = ic.quantize_activation(xd)
+    wq, sw = ic.quantize_weight(wt.to(cuda))
+    before = ic.conv_launches
+    got = ic.int8_conv2d(xq, sx, wq, sw, s, p, g, dtype)
+    torch.cuda.synchronize()
+    assert ic.conv_launches == before + 1
+    want = ic.int8_conv2d_plain(xq, sx, wq, sw, s, p, g, dtype)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    g32, w32 = got.float(), want.float()
+    _, exp = torch.frexp(w32)
+    ulp = torch.ldexp(torch.ones_like(w32),
+                      exp - (24 if dtype == torch.float32 else 8))
+    assert bool(((g32 - w32).abs() <= ulp).all())
+    # and the same conv of the CPU's quantized operands
+    xq_c, sx_c = ic.quantize_activation(x)
+    assert torch.equal(xq.cpu(), xq_c) and torch.equal(sx.cpu(), sx_c)
+
+
+def test_int8_wrappers_refuse_bad_inputs(cuda):
+    from salt_tpu_torch.ops import int8_conv as ic
+    before = (ic.quantize_launches, ic.conv_launches)
+    with pytest.raises(TypeError):
+        ic.quantize_rows(torch.zeros(2, 8, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ic.quantize_rows(torch.zeros(8, 4, device=cuda).t())
+    xq = torch.zeros(1, 16, 8, 8, dtype=torch.int8, device=cuda)
+    wq = torch.zeros(16, 16, 3, 3, dtype=torch.int8, device=cuda)
+    s1, s16 = (torch.ones(n, device=cuda) for n in (1, 16))
+    with pytest.raises(ValueError, match="channels_last"):
+        ic.int8_conv2d(xq, s1, wq, s16, 1, 1)             # NCHW memory
+    xcl = xq.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(TypeError):
+        ic.int8_conv2d(xcl.float(), s1, wq, s16, 1, 1)
+    with pytest.raises(ValueError, match="scales"):
+        ic.int8_conv2d(xcl, s16, wq, s16, 1, 1)
+    with pytest.raises(ValueError):
+        ic.int8_conv2d(xcl, s1, wq[:, :5], s16, 1, 1, groups=3)
+    assert (ic.quantize_launches, ic.conv_launches) == before
+
+
+def test_int8_infer_form_on_card_matches_cpu(cuda):
+    """UNetResNet-18's int8 infer form (``model.quant_bits=8``) in fp32 on
+    the card against the CPU from one seeded model. A free forward on the
+    card launches the kernels once a routed conv (41; quantize twice)
+    and gives finite logits. Its logits cannot be held against the CPU's:
+    the fp32 ops between the convs round in other orders on the two
+    devices, and one flipped int8 rounding moves an output by a step of
+    the scales, which the next convs carry on (on the CPU a 1e-6 change
+    of the input moves the logits 5% of their scale at the worst pixel).
+    So a second forward on the card takes each routed conv's result from
+    the CPU's forward, site by site, and holds: the card's operand
+    against the CPU's within 1e-5 of the site's max (the fp32 ops
+    between the convs; TF32 is off; reading 2.85e-7 on an H100); the
+    kernels' conv of the CPU's operand against the CPU's result within
+    one fp32 ulp (the kernel test's bound: exact s32 sums, the same two
+    fp32 products; reading 0); and the logits within 1e-5 of the CPU's
+    max (the head after the last site; reading 2.2e-7). A float conv in
+    place of an int8 one is off by the quantization's own error,
+    thousands of ulps."""
+    import copy
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.models import quant
+    from salt_tpu_torch.models.registry import build_model, init_seeded
+    from salt_tpu_torch.ops import int8_conv as ic
+    cfg = default_config()
+    cfg.model.encoder_depth = 18
+    cfg.model.quant_bits = 8
+    model = init_seeded(build_model(cfg.model), seed=3)
+    x = torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(1))
+    conv, sites, seen = quant.conv2d_int8, [], []
+
+    def recording(a, weight, stride=1, padding=0, groups=1):
+        out = conv(a, weight, stride, padding, groups)
+        sites.append((a, out))
+        return out
+
+    def forced(a, weight, stride=1, padding=0, groups=1):
+        cpu_a, cpu_out = sites[len(seen)]
+        seen.append((a.cpu(), cpu_a, conv(cpu_a.to(cuda), weight, stride,
+                                          padding, groups).cpu(), cpu_out))
+        return cpu_out.to(cuda).contiguous(memory_format=torch.channels_last)
+
+    with torch.no_grad():
+        quant.conv2d_int8 = recording
+        try:
+            cpu = model(x, infer=True)
+        finally:
+            quant.conv2d_int8 = conv
+        card = copy.deepcopy(model).to(cuda, memory_format=torch.channels_last)
+        ic.quantize_launches = ic.conv_launches = 0
+        free = card(x.to(cuda), infer=True)
+        torch.cuda.synchronize()
+        launches = (ic.conv_launches, ic.quantize_launches)
+        quant.conv2d_int8 = forced
+        try:
+            got = card(x.to(cuda), infer=True).cpu()
+        finally:
+            quant.conv2d_int8 = conv
+    assert launches == (41, 2 * 41)
+    assert bool(torch.isfinite(free).all())
+    assert len(seen) == len(sites) == 41
+    operand = ulps = 0.0
+    for i, (mine, theirs, on_theirs, out) in enumerate(seen):
+        assert mine.shape == theirs.shape, i
+        operand = max(operand, float((mine - theirs).abs().max()
+                                     / theirs.abs().max()))
+        _, exp = torch.frexp(out)
+        ulps = max(ulps, float(((on_theirs - out).abs()
+                                / torch.ldexp(torch.ones_like(out),
+                                              exp - 24)).max()))
+    logits = float((got - cpu).abs().max() / cpu.abs().max())
+    print(f"int8 card against CPU: operand {operand:.3g} of the site max, "
+          f"site results {ulps} fp32 ulp, logits {logits:.3g} of the max")
+    assert operand <= 1e-5 and ulps <= 1.0 and logits <= 1e-5

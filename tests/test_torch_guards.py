@@ -1,7 +1,7 @@
 """The port stands alone and never falls back to the CPU silently.
 
-(g) importing every ``salt_tpu_torch`` module loads no ``jax``, ``flax``
-or ``salt_tpu``; (h) every entry point called without ``device`` raises
+(g) importing every ``salt_tpu_torch`` module loads no ``jax``, ``flax``,
+``aqt`` or ``salt_tpu``; (h) every entry point called without ``device`` raises
 where CUDA is absent; (i) the kernels' wrappers refuse what their kernel
 cannot take before any launch."""
 import os
@@ -34,12 +34,16 @@ for needed in ("pipeline.serving", "ops.preprocess_kernel", "ops.sort_kernel",
                "tools.ab_conv", "tools.preprocess_ab", "data.metadata",
                "models.salt_unet", "losses.dice", "losses.focal",
                "train.throughput", "tools.bench", "tools.profiling",
-               "models.models_with_depth", "models.torch_import"):
+               "models.models_with_depth", "models.torch_import",
+               "models.large_kernel_matters", "models.pspnet",
+               "models.stacking", "models.emptiness", "models.quant",
+               "ops.int8_conv", "pipeline.quality"):
     assert "salt_tpu_torch." + needed in names, names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "salt_tpu") or m.startswith(("jax.", "flax.", "salt_tpu.")))
+             if m in ("jax", "flax", "salt_tpu", "aqt")
+             or m.startswith(("jax.", "flax.", "salt_tpu.", "aqt.")))
 assert not bad, bad
 print(len(names))
 """
@@ -48,7 +52,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 35
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 42
 
 
 @pytest.fixture
@@ -125,3 +129,29 @@ def test_sort_wrapper_refuses_what_it_cannot_launch():
         sort_kernel.sort_desc(torch.zeros(2, 1024, dtype=torch.int32),
                               torch.zeros(2, 1024, dtype=torch.int32))
     assert sort_kernel.launches == before
+
+
+def test_int8_wrappers_refuse_what_they_cannot_launch():
+    """The int8 quantize and conv wrappers raise before any launch on a
+    device that is neither the CPU nor CUDA, and on operands they do not
+    take; the registry refuses widths other than 8."""
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.models.registry import build_model
+    from salt_tpu_torch.ops import int8_conv as ic
+    before = (ic.quantize_launches, ic.conv_launches)
+    with pytest.raises(ValueError, match="device"):
+        ic.quantize_rows(torch.zeros(2, 8, device="meta"))
+    with pytest.raises(TypeError):
+        ic.quantize_rows(torch.zeros(2, 8, dtype=torch.float16))
+    xq = torch.zeros(1, 4, 8, 8, dtype=torch.int8, device="meta")
+    wq = torch.zeros(4, 4, 3, 3, dtype=torch.int8, device="meta")
+    s1, s4 = torch.ones(1, device="meta"), torch.ones(4, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ic.int8_conv2d(xq, s1, wq, s4, 1, 1)
+    with pytest.raises(ValueError, match="gather"):
+        ic.conv_geometry((1, 3, 8, 8), (4, 3, 19, 19), 1, 9, 1)
+    assert (ic.quantize_launches, ic.conv_launches) == before
+    cfg = default_config()
+    cfg.model.quant_bits = 4
+    with pytest.raises(ValueError, match="quant_bits"):
+        build_model(cfg.model)

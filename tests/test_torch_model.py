@@ -76,8 +76,10 @@ def test_registry_validates_and_names_unported():
     with pytest.raises(ValueError, match="upsample_mode"):
         build_model(cfg.model)
     cfg = default_config()
-    cfg.model.architecture = "PSPNet"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.model.architecture = "PSPNet"            # ported: it builds
+    assert type(build_model(cfg.model)).__name__ == "PSPNet"
+    cfg.model.architecture = "PSPNetX"           # no such architecture
+    with pytest.raises(KeyError):
         build_model(cfg.model)
     cfg.model.architecture = "SaltUNet"          # ported: it builds
     assert type(build_model(cfg.model)).__name__ == "SaltUNet"

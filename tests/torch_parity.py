@@ -53,12 +53,13 @@ def arch_configs(arch, depth, **model):
     return cfg, port_config(cfg)
 
 
-def check_keys_and_shapes(arch, depth):
+def check_keys_and_shapes(arch, depth, **model):
     """The port model's flat flax keys and shapes are those of the JAX
     registry's model (traced, nothing compiled)."""
-    cfg, pcfg = arch_configs(arch, depth)
+    cfg, pcfg = arch_configs(arch, depth, **model)
     shapes = jax_variable_shapes(jax_build_model(cfg.model, "float32"),
-                                 depth=takes_depth(arch))
+                                 depth=takes_depth(arch),
+                                 channels=input_channels(cfg.model))
     leaves, _ = jax.tree_util.tree_flatten_with_path(shapes)
     want = {"/".join(_path_str(p) for p in path): tuple(leaf.shape)
             for path, leaf in leaves}
@@ -105,23 +106,32 @@ def seeded_jax_variables(model, seed=0):
     return unflatten_like(flat, variables), flat
 
 
-def jax_variable_shapes(model, depth=False):
+def input_channels(model_cfg):
+    """The input channels of an architecture: a stacking head takes one
+    probability map per first-level model, the others 3."""
+    return (model_cfg.input_model_nr
+            if model_cfg.architecture.startswith("StackingFCN") else 3)
+
+
+def jax_variable_shapes(model, depth=False, channels=3):
     """``model``'s variable tree as shapes, traced with ``jax.eval_shape``
     (no flax init runs, which takes tens of seconds eagerly on the CPU);
-    ``depth``: the model also takes the [B, 1] depth."""
+    ``depth``: the model also takes the [B, 1] depth; ``channels``: of
+    its [B, 128, 128, C] input."""
     extra = (jnp.zeros((2, 1), jnp.float32),) if depth else ()
     return jax.eval_shape(lambda: model.init(
-        jax.random.PRNGKey(0), jnp.zeros((2, 128, 128, 3), jnp.float32),
-        *extra, train=False))
+        jax.random.PRNGKey(0),
+        jnp.zeros((2, 128, 128, channels), jnp.float32), *extra,
+        train=False))
 
 
-def numpy_jax_variables(model, seed=0, depth=False):
+def numpy_jax_variables(model, seed=0, depth=False, channels=3):
     """The variable tree of ``model`` (:func:`jax_variable_shapes`)
     filled from numpy seed ``seed``: conv and dense kernels N(0, 1 /
     fan_in) (flax's lecun_normal scale), the BatchNorm leaves and biases
-    as :func:`seeded_jax_variables` draws them. Returns (variables,
-    flat)."""
-    shapes = jax_variable_shapes(model, depth)
+    as :func:`seeded_jax_variables` draws them, a PReLU's alpha 0.25 +
+    0.05 N(0, 1). Returns (variables, flat)."""
+    shapes = jax_variable_shapes(model, depth, channels)
     leaves, _ = jax.tree_util.tree_flatten_with_path(shapes)
     rng = np.random.RandomState(seed)
     flat = {}
@@ -138,9 +148,11 @@ def numpy_jax_variables(model, seed=0, depth=False):
             value = 0.1 * rng.randn(*shape)
         elif name == "bias":
             value = 0.05 * rng.randn(*shape)
+        elif name == "prelu_alpha":
+            value = 0.25 + 0.05 * rng.randn(*shape)
         else:
             raise ValueError(f"no draw for the leaf {key}")
-        flat[key] = value.astype(np.float32)
+        flat[key] = np.asarray(value, np.float32)
     return unflatten_like(flat, shapes), flat
 
 
