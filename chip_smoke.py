@@ -88,18 +88,23 @@ Phases (each raises on failure; the script then exits non-zero):
                 classifier and the stacking heads (18 inputs, with and
                 without depth) card vs CPU;
 17. int8      — ``model.quant_bits=8``: each conv shape of the flagship's
-                int8 route at batch 24 and 64 (quantize bit for bit, the
-                conv within one bf16 ulp of the plain versions), timed at
-                64 by CUDA events beside its bound and cuDNN's bf16 conv;
-                the int8 conv
-                launches per forward against the route's sites;
+                int8 route at batch 24 and 64 (quantize bit for bit; the
+                conv on its path, the wgmma kernel bit for bit and the
+                mma.sync one within one bf16 ulp of the plain versions,
+                and the mma.sync kernel on the wgmma shapes too), each
+                conv kernel timed by a CUDA graph of back-to-back calls
+                and a whole call by CUDA events, beside its bound, the
+                mma.sync kernel and cuDNN's bf16 conv; each path's
+                launches per forward
+                against the route's sites;
                 ``serve --int8 --synthetic 2048`` at 24 beside bf16;
 18. bench     — ``python -m salt_tpu_torch.tools.bench`` at reduced
                 windows (it prints its JSON line; ``flagship_tta_int8`` at
                 64 beside bf16).
 Device times of the first seven kernels come from whole profiler
 sessions (``tools/profiling.py``: the profiler loses events), the int8
-calls' from CUDA events over back-to-back calls, and a kernel's or a
+convs' from CUDA graphs of back-to-back calls (their whole calls' and
+the quantizer's from CUDA events), and a kernel's or a
 library call's time under its bound fails the run, after
 ``MEASURE_TRIES`` measurements that all read under it.
 Each path's kernel launch counts are set to 0 just before it runs and read
@@ -1933,20 +1938,21 @@ def phase_bench(card):
     """``python -m salt_tpu_torch.tools.bench`` at reduced windows (it
     prints its line; its keys and rates are checked). The TTA steps launch
     the preprocess kernel, the int8 TTA step and the int8 serve the int8
-    kernels (INT8_CONV_PER_FORWARD convs a forward, each after two
-    quantize calls) and the train steps the sort kernel; returns their
-    launches."""
-    from salt_tpu_torch.ops import int8_conv as ic
+    kernels (INT8_CONV_PER_FORWARD convs a forward, INT8_WGMMA_PER_FORWARD
+    of them on the wgmma kernel, each after two quantize calls; the
+    profiled int8 step reads both conv kernels) and the train steps the
+    sort kernel; returns their launches."""
     from salt_tpu_torch.ops import preprocess_kernel as pk
     from salt_tpu_torch.ops import sort_kernel as sk
     from salt_tpu_torch.tools import bench
-    pk.launches = sk.launches = ic.conv_launches = ic.quantize_launches = 0
+    pk.launches = sk.launches = 0
+    _int8_reset()
     t0 = time.perf_counter()
     line = bench.main(["--iters", "10", "--windows", "2", "--train-iters",
                        "5", "--profile-steps", "3"])
     wall = time.perf_counter() - t0
-    counts = dict(preprocess=pk.launches, sort=sk.launches,
-                  int8_conv=ic.conv_launches, int8_quant=ic.quantize_launches)
+    counts = dict(_int8_counts(), preprocess=pk.launches, sort=sk.launches)
+    int8_forwards = counts["int8_conv"] // INT8_CONV_PER_FORWARD
     rates = ("flagship_tta_bf16", "flagship_tta_int8", "flagship_train",
              "salt_unet16_tta", "serve_synthetic_2048")
     steps = line["breakdown"]
@@ -1956,10 +1962,12 @@ def phase_bench(card):
             or line["flagship_tta_int8"]["quant_bits"] != 8
             or steps["tta_step"]["kernels"]["preprocess_inference_kernel"][
                 "launches_per_step"] != 1
-            or not steps["tta_step_int8"]["kernels"]["int8_conv_kernel"][
-                "launches_per_step"] > 0
+            or not all(steps["tta_step_int8"]["kernels"][k][
+                "launches_per_step"] > 0 for k in ("int8_conv_wgmma_kernel",
+                                                   "int8_conv_kernel"))
             or counts["int8_conv"] % INT8_CONV_PER_FORWARD
-            or counts["int8_quant"] != 2 * counts["int8_conv"]
+            or {k: counts[k] for k in _int8_want(0)} != _int8_want(
+                int8_forwards)
             or not steps["train_step"]["kernels"][bench.KERNEL_PREFIX][
                 "launches_per_step"] > 0
             or not all(counts.values())):
@@ -2450,7 +2458,40 @@ def phase_arch2(dev, card):
 #: convs take row 3 instead.
 INT8_CONV_PER_FORWARD = 57
 INT8_CONV_PER_FORWARD_ON = 43
+#: of those, the stride-1 3x3 convs with C_in a multiple of 64 that
+#: ``ops/int8_conv.py::conv_path`` sends to csrc/int8_conv_wgmma.cu "off"
+#: (the rest, 8, to csrc/int8_conv.cu); "on" hands 14 of them to row 3
+INT8_WGMMA_PER_FORWARD = 49
+INT8_WGMMA_PER_FORWARD_ON = INT8_WGMMA_PER_FORWARD - CONV_KERNEL_PER_FORWARD
 N_INT8_SERVE = 2048
+#: calls of an int8 conv captured in one CUDA graph, and the graph's
+#: timed replays (the median counts)
+INT8_GRAPH_CALLS, INT8_GRAPH_REPLAYS = 20, 5
+
+
+def _int8_reset():
+    """Set the int8 kernels' counters to 0."""
+    from salt_tpu_torch.ops import int8_conv as ic
+    ic.conv_launches = ic.quantize_launches = 0
+    ic.wgmma_launches = ic.mma_launches = 0
+
+
+def _int8_counts():
+    """The int8 kernels' counters: both conv paths, each path, the
+    quantizer."""
+    from salt_tpu_torch.ops import int8_conv as ic
+    return dict(int8_conv=ic.conv_launches, int8_wgmma=ic.wgmma_launches,
+                int8_mma=ic.mma_launches, int8_quant=ic.quantize_launches)
+
+
+def _int8_want(forwards, on=False):
+    """:func:`_int8_counts` after ``forwards`` flagship int8 forwards with
+    ``model.pallas_conv`` "off" (or "on")."""
+    conv = INT8_CONV_PER_FORWARD_ON if on else INT8_CONV_PER_FORWARD
+    wgmma = INT8_WGMMA_PER_FORWARD_ON if on else INT8_WGMMA_PER_FORWARD
+    return dict(int8_conv=conv * forwards, int8_wgmma=wgmma * forwards,
+                int8_mma=(conv - wgmma) * forwards,
+                int8_quant=2 * conv * forwards)
 
 
 def _int8_config(quant_bits=8, pallas_conv="off", batch=SERVE_BATCH):
@@ -2515,17 +2556,61 @@ def _quant_bound(rows, length, itemsize):
     return (rows * length * (itemsize + 1) + 4 * rows) / HBM_BYTES_PER_S * 1e3
 
 
+def graph_ms(fn, calls=INT8_GRAPH_CALLS, replays=INT8_GRAPH_REPLAYS):
+    """Device ms a call of ``fn``: ``calls`` back-to-back calls captured
+    in one CUDA graph, replayed ``replays`` times under CUDA events, the
+    median replay over ``calls``. No host work runs between the
+    kernels, so a small kernel reads its own time and not its launch's;
+    the launches' own gaps in the graph stay in."""
+    import statistics
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def _int8_ulps(got, want):
+    """The largest distance of ``got`` from ``want`` in bf16 ulps of
+    ``want`` (both fp32 tensors of bf16 values)."""
+    import torch
+    _, exp = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), exp - 8)
+    return float(((got - want).abs() / ulp).max())
+
+
 def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
     """One conv of the route on random bf16 operands: the quantize
     kernel's values and scales bit-equal to its plain version's for the
-    activation and the weight, the conv kernel within one bf16 ulp of its
-    plain version (no floor: the s32 sums are exact); the times of the
-    kernels' calls, of cuDNN's bf16 ``F.conv2d`` on the same shape (the
-    yardstick; the port never calls it) and, with ``plain``, of the plain
-    versions, all by CUDA events over back-to-back calls (the profiler
-    records no device event in some sessions of a call that launches
-    only ctypes kernels, so it does not time these), and the bounds.
-    Returns a dict."""
+    activation and the weight; the conv on the path ``conv_path`` gives
+    it, the wgmma kernel bit-equal to its plain version, the mma.sync one
+    within one bf16 ulp (no floor: the s32 sums are exact), and on a
+    wgmma shape the mma.sync kernel too (``path="mma"``, the A/B). Times:
+    each conv kernel's device time from a CUDA graph of back-to-back calls
+    (:func:`graph_ms`), a whole call's by CUDA events over back-to-back
+    calls (host work included; the profiler records no device event in
+    some sessions of a call that launches only ctypes kernels, so it
+    times neither), the quantize calls' by events, cuDNN's bf16
+    ``F.conv2d`` on the same shape (the yardstick; the port never calls
+    it) and, with ``plain``, the plain versions; and the bounds. Returns
+    a dict."""
     import torch
     import torch.nn.functional as F
     from salt_tpu_torch.ops import int8_conv as ic
@@ -2533,6 +2618,7 @@ def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
     gen = torch.Generator().manual_seed(seed)
     b, c, h, w = xs
     o, cg, kh, kw = ws
+    path = ic.conv_path(xs, ws, stride, padding, groups)
     x = (torch.randn(xs, generator=gen) * 2).to(torch.bfloat16).to(
         dev).contiguous(memory_format=torch.channels_last)
     wt = (torch.randn(ws, generator=gen) / math.sqrt(kh * kw * cg)).to(
@@ -2551,18 +2637,33 @@ def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
         xq = qx.view(b, h, w, c).permute(0, 3, 1, 2)
         wq = qw.view(o, kh, kw, cg).permute(0, 3, 1, 2)
         args = (xq, sx, wq, sw, stride, padding, groups, torch.bfloat16)
-        got = ic.int8_conv2d(*args).float()
+
+        def conv():
+            return ic.int8_conv2d(*args)
+
+        def mma():
+            return ic.int8_conv2d(*args, path="mma")
+
+        got = conv().float()
         want = ic.int8_conv2d_plain(*args).float()
+        got_mma = mma().float()
         torch.cuda.synchronize()
-        _, exp = torch.frexp(want)
-        ulp = torch.ldexp(torch.ones_like(want), exp - 8)
-        err = (got - want).abs()
-        worst = float((err / ulp).max())
-        if got.shape != want.shape or worst > 1.0:
-            raise AssertionError(f"int8 conv {xs} {ws}: {worst} bf16 ulp")
-        out = dict(max_abs_err=float(err.max()), max_ulp=worst)
-        out["ms"] = time_ms(lambda: ic.int8_conv2d(*args), iters=50,
-                            warmup=5)
+        worst, worst_mma = _int8_ulps(got, want), _int8_ulps(got_mma, want)
+        if (got.shape != want.shape or got_mma.shape != want.shape
+                or worst > (0.0 if path == "wgmma" else 1.0)
+                or worst_mma > 1.0):
+            raise AssertionError(f"int8 conv {xs} {ws} ({path}): {worst} "
+                                 f"bf16 ulp; the mma.sync kernel "
+                                 f"{worst_mma}")
+        out = dict(path=path, max_abs_err=float((got - want).abs().max()),
+                   max_ulp=worst)
+        out["ms"] = graph_ms(conv)
+        out["call_ms"] = time_ms(conv, iters=50, warmup=5)
+        if path == "wgmma":
+            out["mma_ms"] = graph_ms(mma)
+            out["mma_call_ms"] = time_ms(mma, iters=50, warmup=5)
+        else:
+            out["mma_ms"], out["mma_call_ms"] = out["ms"], out["call_ms"]
         # one call is the two passes, absmax_kernel and quant_kernel
         out["quant_ms"] = sum(time_ms(lambda: ic.quantize_rows(rows),
                                       iters=50, warmup=5)
@@ -2574,7 +2675,9 @@ def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
             _int8_bound(xs, ws, stride, padding, groups)
         out["quant_bound_ms"] = (_quant_bound(b, c * h * w, 2)
                                  + _quant_bound(o, cg * kh * kw, 2))
-        check_bound(f"int8 conv {xs} {ws}", out["bound_ms"], ms=out["ms"])
+        check_bound(f"int8 conv {xs} {ws}", out["bound_ms"], ms=out["ms"],
+                    call_ms=out["call_ms"], mma_ms=out["mma_ms"],
+                    mma_call_ms=out["mma_call_ms"])
         check_bound(f"int8 quantize {xs} {ws}", out["quant_bound_ms"],
                     quant_ms=out["quant_ms"])
         if plain:
@@ -2593,38 +2696,37 @@ def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
 def _int8_forward_counts(dev, card):
     """The int8 kernels' launches in one TTA step of the flagship at batch
     24, "off" and "on", against the route's sites (JAX's, counted in
-    tests/test_torch_int8_model.py): each routed conv one conv launch and
-    two quantize calls; "on" sends the 14 64 -> 64 convs to row 3."""
+    tests/test_torch_int8_model.py): each routed conv one conv launch
+    (the wgmma kernel for 49 of the 57, the mma.sync one for the rest)
+    and two quantize calls; "on" sends the 14 64 -> 64 convs to row 3."""
     import torch
     from salt_tpu_torch.ops import conv_kernel as ck
-    from salt_tpu_torch.ops import int8_conv as ic
     from salt_tpu_torch.ops import preprocess_kernel as pk
     from salt_tpu_torch.train.steps import SegmentationRunner
 
     imgs = torch.from_numpy(seeded_images(SERVE_BATCH, seed=6)).to(dev)
-    total = dict(int8_conv=0, int8_quant=0, conv=0, preprocess=0)
-    for mode, want in (("off", (INT8_CONV_PER_FORWARD, 0)),
-                       ("on", (INT8_CONV_PER_FORWARD_ON,
-                               CONV_KERNEL_PER_FORWARD))):
+    total = dict(_int8_want(0), conv=0, preprocess=0)
+    for mode in ("off", "on"):
+        on = mode == "on"
+        want = dict(_int8_want(1, on),
+                    conv=CONV_KERNEL_PER_FORWARD if on else 0, preprocess=1)
         runner = SegmentationRunner(_int8_config(pallas_conv=mode), dev)
         model = runner.init_model(0)
-        ic.conv_launches = ic.quantize_launches = ck.launches = 0
-        pk.launches = 0
+        _int8_reset()
+        ck.launches = pk.launches = 0
         probs = runner.predict_tta_step(model, imgs)
         torch.cuda.synchronize()
-        got = (ic.conv_launches, ck.launches)
-        if (got != want or ic.quantize_launches != 2 * want[0]
-                or pk.launches != 1 or not bool(torch.isfinite(probs).all())):
-            raise AssertionError(f"int8 forward ({mode}): int8 conv and row "
-                                 f"3 launches {got}, quantize "
-                                 f"{ic.quantize_launches}; expected {want}")
-        log("int8_route", pallas_conv=mode, int8_conv_launches=got[0],
-            quantize_calls=ic.quantize_launches, conv3x3_pair_launches=got[1],
-            card=repr(card))
-        total["int8_conv"] += got[0]
-        total["int8_quant"] += ic.quantize_launches
-        total["conv"] += got[1]
-        total["preprocess"] += pk.launches
+        got = dict(_int8_counts(), conv=ck.launches, preprocess=pk.launches)
+        if got != want or not bool(torch.isfinite(probs).all()):
+            raise AssertionError(f"int8 forward ({mode}): launches {got}; "
+                                 f"expected {want}")
+        log("int8_route", pallas_conv=mode, int8_conv_launches=got[
+            "int8_conv"], int8_conv_wgmma_launches=got["int8_wgmma"],
+            int8_conv_mma_launches=got["int8_mma"],
+            quantize_calls=got["int8_quant"],
+            conv3x3_pair_launches=got["conv"], card=repr(card))
+        for k in total:
+            total[k] += got[k]
     return total
 
 
@@ -2636,7 +2738,6 @@ def _int8_serve(dev, card):
     profiled (device ms, busy share, launches)."""
     import numpy as np
     import torch
-    from salt_tpu_torch.ops import int8_conv as ic
     from salt_tpu_torch.ops import preprocess_kernel as pk
     from salt_tpu_torch.pipeline.serving import serve
     from salt_tpu_torch.tools.profiling import step_breakdown
@@ -2648,16 +2749,14 @@ def _int8_serve(dev, card):
         cfg = _int8_config(quant_bits=bits)
         with tempfile.TemporaryDirectory() as tmp:
             out_csv = os.path.join(tmp, "submission.csv")
-            ic.conv_launches = ic.quantize_launches = pk.launches = 0
+            _int8_reset()
+            pk.launches = 0
             result = serve(cfg, "", "", out_csv, synthetic=N_INT8_SERVE,
                            device=dev)
-            got = dict(int8_conv=ic.conv_launches,
-                       int8_quant=ic.quantize_launches,
-                       preprocess=pk.launches)
+            got = dict(_int8_counts(), preprocess=pk.launches)
             _, masks[bits] = _csv_masks(out_csv)
         forwards = result["batches"] + result["warmup_batches"]
-        per = INT8_CONV_PER_FORWARD if bits else 0
-        if got != dict(int8_conv=per * forwards, int8_quant=2 * per * forwards,
+        if got != dict(_int8_want(forwards if bits else 0),
                        preprocess=forwards):
             raise AssertionError(f"serve (quant_bits {bits}): launches {got}"
                                  f" for {forwards} forward batches")
@@ -2665,7 +2764,8 @@ def _int8_serve(dev, card):
         model = runner.init_model(0)
         steps = step_breakdown(
             lambda i: runner.predict_tta_step(model, imgs), steps=5, top=5,
-            kernels=("int8_conv_kernel", "quant_kernel", "absmax_kernel"))
+            kernels=("int8_conv_wgmma_kernel", "int8_conv_kernel",
+                     "quant_kernel", "absmax_kernel"))
         log("int8_serve", quant_bits=bits, images=N_INT8_SERVE,
             batch=SERVE_BATCH, tta="hflip", dtype=cfg.training.dtype,
             images_per_s=result["images_per_sec"],
@@ -2689,15 +2789,38 @@ def _int8_serve(dev, card):
     return {k: counts[0][k] + counts[8][k] for k in counts[8]}
 
 
+#: the sums phase_int8 keeps per conv path and batch
+_INT8_SUMS = ("ms", "call_ms", "mma_ms", "mma_call_ms", "plain_ms",
+              "bound_ms", "cudnn_bf16_ms", "ops_ms", "bytes_ms", "sites")
+
+
+def _int8_record(name, source, sums, max_err, shape):
+    """The kernels line's record of one int8 conv kernel: its sites'
+    times summed over one forward at 128 images."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": "salt_tpu/models/quant.py:24",
+            "launches": None, "max_abs_err": max_err, "ms": sums["ms"],
+            "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+            "bound_by": ("operations" if sums["ops_ms"] >= sums["bytes_ms"]
+                         else "bytes"),
+            "library_ms": None, "timed_by": "cuda_graph",
+            "call_ms": sums["call_ms"], "timed_call_by": "events",
+            "yardstick_ms": sums["cudnn_bf16_ms"],
+            "yardstick": "cuDNN bf16 F.conv2d, same shapes",
+            "shape": shape}
+
+
 def phase_int8(dev, card):
     """int8 serving (``model.quant_bits=8``) on the card: every conv shape
     of the flagship's int8 route (recorded from one TTA step at batch 24)
     checked and timed at batch 24 and 64 (48 and 128 images a forward),
-    the plain versions timed at 64; the launches per forward against the
-    route's sites, "off" and
-    "on"; ``serve --int8 --synthetic 2048`` beside bf16. Returns the
-    kernel records (their times summed over one forward at batch 64, each
-    site as often as the forward calls it) and the launches."""
+    on the path ``conv_path`` gives it and, for the wgmma kernel's
+    shapes, on the mma.sync kernel too (the A/B), the plain versions
+    timed at 64; the launches per forward of each path against the
+    route's sites, "off" and "on"; ``serve --int8 --synthetic 2048`` at
+    24 beside bf16. Returns the kernel records of the two conv kernels
+    and the quantizer (their times summed over one forward at batch 64,
+    each site as often as the forward calls it) and the launches."""
     sites = _int8_sites(dev)
     if len(sites) != INT8_CONV_PER_FORWARD:
         raise AssertionError(f"int8 route: {len(sites)} sites, expected "
@@ -2705,69 +2828,83 @@ def phase_int8(dev, card):
     shapes = {}
     for s in sites:
         shapes[s] = shapes.get(s, 0) + 1
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, cudnn_bf16_ms=0.0,
-                  quant_ms=0.0, quant_plain_ms=0.0, quant_bound_ms=0.0,
-                  ops_ms=0.0, bytes_ms=0.0)
-    max_err = 0.0
-    by_batch = {SERVE_BATCH: dict(ms=0.0, bound_ms=0.0, cudnn_bf16_ms=0.0,
-                                  quant_ms=0.0, quant_bound_ms=0.0)}
+    sums = {(path, batch): dict.fromkeys(_INT8_SUMS, 0.0)
+            for path in ("wgmma", "mma") for batch in (SERVE_BATCH,
+                                                       BENCH_BATCH)}
+    quant = dict(quant_ms=0.0, quant_plain_ms=0.0, quant_bound_ms=0.0)
+    max_err = {"wgmma": 0.0, "mma": 0.0}
     for i, ((xs, ws, stride, padding, groups), n) in enumerate(
             shapes.items()):
         for batch in (SERVE_BATCH, BENCH_BATCH):
             xb = (2 * batch,) + xs[1:]
             r = _int8_check(dev, xb, ws, stride, padding, groups, seed=i,
                             plain=batch == BENCH_BATCH)
-            max_err = max(max_err, r["max_abs_err"])
-            sums = totals if batch == BENCH_BATCH else by_batch[batch]
-            for k in sums:
-                if k in r:
-                    sums[k] += n * r[k]
+            r["ops_ms"] = r["ops"] / INT8_DENSE_OPS * 1e3
+            r["bytes_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+            r["sites"] = 1
+            path = r["path"]
+            max_err[path] = max(max_err[path], r["max_abs_err"])
+            for k in _INT8_SUMS:
+                sums[path, batch][k] += n * r.get(k, 0.0)
             if batch == BENCH_BATCH:
-                totals["ops_ms"] += n * r["ops"] / INT8_DENSE_OPS * 1e3
-                totals["bytes_ms"] += n * r["bytes"] / HBM_BYTES_PER_S * 1e3
+                for k in quant:
+                    quant[k] += n * r[k]
             log("int8_shape", x=list(xb), w=list(ws), stride=stride,
-                padding=padding, groups=groups, per_forward=n,
-                ms=f"{r['ms']:.5f}", quant_ms=f"{r['quant_ms']:.5f}",
+                padding=padding, groups=groups, per_forward=n, path=path,
+                ms=f"{r['ms']:.5f}", timed_by="cuda_graph",
+                call_ms=f"{r['call_ms']:.5f}",
+                mma_ms=f"{r['mma_ms']:.5f}",
+                mma_call_ms=f"{r['mma_call_ms']:.5f}",
                 bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
                 bound_share=f"{r['bound_ms'] / r['ms']:.3f}",
+                mma_bound_share=f"{r['bound_ms'] / r['mma_ms']:.3f}",
                 tops=f"{r['ops'] / r['ms'] / 1e9:.1f}",
+                quant_ms=f"{r['quant_ms']:.5f}",
                 cudnn_bf16_ms=f"{r['cudnn_bf16_ms']:.5f}",
                 plain_ms=f"{r.get('plain_ms', float('nan')):.4f}",
-                max_ulp=r["max_ulp"], floor=0, timed_by="events",
-                card=repr(card))
-    log("int8_forward", images=2 * SERVE_BATCH, sites=len(sites),
-        shapes=len(shapes), **{k: f"{v:.4f}"
-                               for k, v in by_batch[SERVE_BATCH].items()},
-        card=repr(card))
-    log("int8_forward", images=2 * BENCH_BATCH, sites=len(sites),
-        shapes=len(shapes), **{k: f"{v:.4f}" for k, v in totals.items()},
-        card=repr(card))
+                max_ulp=r["max_ulp"], floor=0, card=repr(card))
+    for batch in (SERVE_BATCH, BENCH_BATCH):
+        new, old = sums["wgmma", batch], sums["mma", batch]
+        log("int8_forward", images=2 * batch, sites=len(sites),
+            shapes=len(shapes), row9_ms=f"{new['ms'] + old['ms']:.4f}",
+            row9_mma_ms=f"{new['mma_ms'] + old['ms']:.4f}",
+            row9_call_ms=f"{new['call_ms'] + old['call_ms']:.4f}",
+            row9_mma_call_ms=f"{new['mma_call_ms'] + old['call_ms']:.4f}",
+            bound_ms=f"{new['bound_ms'] + old['bound_ms']:.4f}",
+            cudnn_bf16_ms=format(new["cudnn_bf16_ms"]
+                                 + old["cudnn_bf16_ms"], ".4f"),
+            **{f"{path}_{k}": f"{sums[path, batch][k]:.4f}"
+               for path in ("wgmma", "mma")
+               for k in ("sites", "ms", "mma_ms", "bound_ms")},
+            card=repr(card))
     counts = _int8_forward_counts(dev, card)
     serve_counts = _int8_serve(dev, card)
     for k in serve_counts:
         counts[k] = counts.get(k, 0) + serve_counts[k]
-    shape = (f"the {len(sites)} int8 convs of one flagship infer forward, "
-             f"{2 * BENCH_BATCH} images, bf16 (summed)")
-    conv = {"name": "int8_conv", "route": "cuda",
-            "source": "salt_tpu_torch/csrc/int8_conv.cu",
-            "replaces": "salt_tpu/models/quant.py:24",
-            "launches": None, "max_abs_err": max_err, "ms": totals["ms"],
-            "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
-            "bound_by": ("operations" if totals["ops_ms"]
-                         >= totals["bytes_ms"] else "bytes"),
-            "library_ms": None, "timed_by": "events",
-            "yardstick_ms": totals["cudnn_bf16_ms"],
-            "yardstick": "cuDNN bf16 F.conv2d, same shapes", "shape": shape}
-    quant = {"name": "int8_quant", "route": "cuda",
-             "source": "salt_tpu_torch/csrc/int8_quant.cu",
-             "replaces": "salt_tpu/models/quant.py:24",
-             "launches": None, "max_abs_err": 0.0, "ms": totals["quant_ms"],
-             "plain_ms": totals["quant_plain_ms"],
-             "bound_ms": totals["quant_bound_ms"], "bound_by": "bytes",
-             "library_ms": None, "timed_by": "events",
-             "shape": shape.replace("the ", "the activation and weight "
-                                    "quantizations of the ", 1)}
-    return conv, quant, counts
+    new, old = sums["wgmma", BENCH_BATCH], sums["mma", BENCH_BATCH]
+    shape = (f"the {{}} of the {len(sites)} int8 convs of one flagship "
+             f"infer forward, {2 * BENCH_BATCH} images, bf16 (summed)")
+    wgmma = _int8_record(
+        "int8_conv_wgmma", "salt_tpu_torch/csrc/int8_conv_wgmma.cu", new,
+        max_err["wgmma"], shape.format(f"{INT8_WGMMA_PER_FORWARD} stride-1 "
+                                       "3x3"))
+    wgmma["mma_kernel_ms"] = new["mma_ms"]  # int8_conv.cu on these sites
+    mma = _int8_record(
+        "int8_conv", "salt_tpu_torch/csrc/int8_conv.cu", old,
+        max_err["mma"],
+        shape.format(f"{INT8_CONV_PER_FORWARD - INT8_WGMMA_PER_FORWARD} "
+                     "other"))
+    quant_rec = {"name": "int8_quant", "route": "cuda",
+                 "source": "salt_tpu_torch/csrc/int8_quant.cu",
+                 "replaces": "salt_tpu/models/quant.py:24",
+                 "launches": None, "max_abs_err": 0.0,
+                 "ms": quant["quant_ms"],
+                 "plain_ms": quant["quant_plain_ms"],
+                 "bound_ms": quant["quant_bound_ms"], "bound_by": "bytes",
+                 "library_ms": None, "timed_by": "events",
+                 "shape": shape.format("activation and weight quantizations "
+                                       f"of all {len(sites)}")}
+    return wgmma, mma, quant_rec, counts
 
 
 def _cv_int8_gate(exp, flags, card, n_folds, val_batches, test_batches):
@@ -2781,20 +2918,18 @@ def _cv_int8_gate(exp, flags, card, n_folds, val_batches, test_batches):
     import glob
     import torch
     from salt_tpu_torch import cli
-    from salt_tpu_torch.ops import int8_conv as ic
     from salt_tpu_torch.ops import preprocess_kernel as pk
 
     int8 = ["--set", "model.pallas_conv=off", "--set", "model.quant_bits=8"]
-    ic.conv_launches = ic.quantize_launches = pk.launches = 0
+    _int8_reset()
+    pk.launches = 0
     t0 = time.perf_counter()
     rc = cli.main(["evaluate-predict-cv", *flags, *int8])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     forwards = n_folds * (val_batches + test_batches)
-    got = dict(int8_conv=ic.conv_launches, int8_quant=ic.quantize_launches,
-               preprocess=pk.launches)
-    want = dict(int8_conv=INT8_CONV_PER_FORWARD * forwards,
-                int8_quant=2 * INT8_CONV_PER_FORWARD * forwards,
+    got = dict(_int8_counts(), preprocess=pk.launches)
+    want = dict(_int8_want(forwards),
                 preprocess=n_folds * (2 * val_batches + test_batches))
     paths = sorted(glob.glob(os.path.join(exp, "int8_gate_*.json")))
     gates = []
@@ -2816,7 +2951,8 @@ def _cv_int8_gate(exp, flags, card, n_folds, val_batches, test_batches):
         card=repr(card))
     out_csv = os.path.join(exp, "int8_submission.csv")
     n_serve = 2 * SERVE_BATCH
-    ic.conv_launches = ic.quantize_launches = pk.launches = 0
+    _int8_reset()
+    pk.launches = 0
     rc = cli.main(["serve", "--int8", "--checkpoint", exp, "--synthetic",
                    str(n_serve), "--out", out_csv, "--set",
                    "model.pallas_conv=off", "--set",
@@ -2826,14 +2962,11 @@ def _cv_int8_gate(exp, flags, card, n_folds, val_batches, test_batches):
         prov = json.load(f)
     batches = math.ceil(n_serve / SERVE_BATCH)
     forwards = batches * n_folds + batches       # timed, and the warm-up
-    served = dict(int8_conv=ic.conv_launches, int8_quant=ic.quantize_launches,
-                  preprocess=pk.launches)
+    served = dict(_int8_counts(), preprocess=pk.launches)
     if (rc != 0 or prov["gate_status"] != "measured"
             or len(prov["gates"]) != n_folds
             or len(prov["checkpoints"]) != n_folds
-            or served != dict(int8_conv=INT8_CONV_PER_FORWARD * forwards,
-                              int8_quant=2 * INT8_CONV_PER_FORWARD * forwards,
-                              preprocess=forwards)):
+            or served != dict(_int8_want(forwards), preprocess=forwards)):
         raise AssertionError(f"serve --int8: rc {rc}, provenance "
                              f"{prov['gate_status']!r} with "
                              f"{len(prov['gates'])} gates, launches {served}")
@@ -2887,7 +3020,7 @@ def main():
     phase_losses(dev)
     arch = phase_arch(dev, smi)
     arch2 = phase_arch2(dev, smi)
-    int8_conv, int8_quant, int8 = phase_int8(dev, smi)
+    int8_wgmma, int8_conv, int8_quant, int8 = phase_int8(dev, smi)
     bench_counts = phase_bench(smi)
     preprocess["launches"] = (serve_preprocess + train_preprocess
                               + cv_on["preprocess"] + cv_off["preprocess"]
@@ -2902,8 +3035,10 @@ def main():
                         + arch["sort"] + arch2["sort"])
     conv["launches"] = (serve_conv + cv_on["conv"] + ab_launches
                         + arch["conv"] + arch2["conv"] + int8["conv"])
-    int8_conv["launches"] = (int8["int8_conv"] + cv_int8["int8_conv"]
-                             + bench_counts["int8_conv"])
+    int8_wgmma["launches"] = (int8["int8_wgmma"] + cv_int8["int8_wgmma"]
+                              + bench_counts["int8_wgmma"])
+    int8_conv["launches"] = (int8["int8_mma"] + cv_int8["int8_mma"]
+                             + bench_counts["int8_mma"])
     int8_quant["launches"] = (int8["int8_quant"] + cv_int8["int8_quant"]
                               + bench_counts["int8_quant"])
     for key, count in probe_launches.items():
@@ -2924,14 +3059,18 @@ def main():
         sort_arch=arch["sort"], sort_arch2=arch2["sort"],
         conv_serve=serve_conv, conv_cv=cv_on["conv"], conv_ab=ab_launches,
         conv_arch=arch["conv"], conv_int8=int8["conv"],
-        int8_conv_int8=int8["int8_conv"], int8_conv_gate=cv_int8["int8_conv"],
-        int8_conv_bench=bench_counts["int8_conv"],
+        int8_conv_wgmma_int8=int8["int8_wgmma"],
+        int8_conv_wgmma_gate=cv_int8["int8_wgmma"],
+        int8_conv_wgmma_bench=bench_counts["int8_wgmma"],
+        int8_conv_int8=int8["int8_mma"], int8_conv_gate=cv_int8["int8_mma"],
+        int8_conv_bench=bench_counts["int8_mma"],
         int8_quant_int8=int8["int8_quant"],
         int8_quant_gate=cv_int8["int8_quant"],
         int8_quant_bench=bench_counts["int8_quant"], **probe_launches)
     print(json.dumps({"kernels": [
         preprocess, sort, conv, probes["conv128"], probes["conv64p"],
-        probes["matmul"], probes["conv64p_v2"], int8_quant, int8_conv]}),
+        probes["matmul"], probes["conv64p_v2"], int8_quant, int8_wgmma,
+        int8_conv]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels,
-// conv3x3_pair.cu, conv_valid.cu and matmul_wgmma.cu: mbarriers, TMA loads
-// and stores, wgmma (bf16 with A in registers or by descriptor, s8 with A
-// in registers) with B by shared-memory descriptor, and the
-// tensor-map encoder (cuTensorMapEncodeTiled through
+// conv3x3_pair.cu, conv_valid.cu, matmul_wgmma.cu and int8_conv_wgmma.cu:
+// mbarriers, TMA loads and stores, wgmma (bf16 with A in registers or by
+// descriptor, s8 with A in registers) with B by shared-memory descriptor,
+// and the tensor-map encoder (cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so nothing links against libcuda).
 #pragma once
 
@@ -106,6 +106,13 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 // A of wgmma_ss_tn.
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
   return smem_desc(addr, 0, 1024);
+}
+// K-major under the 64-byte swizzle: rows of 64 bytes (64 s8 k values) in
+// 8-row atoms 512 bytes apart, as TMA's 64-byte swizzle leaves a box
+// whose inner dimension is 64 bytes; a k32 step is +32 bytes of `addr`.
+__device__ __forceinline__ uint64_t b_desc64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -252,13 +259,15 @@ __device__ __forceinline__ void wgmma_ss_tn<128>(float* d, uint64_t a_desc,
 }
 
 // A 2- to 4-D tensor map of `type` (bf16, or bytes for s8) with a
-// 128-byte swizzle (the innermost box is 128 bytes: 64 bf16, 128 s8);
-// dims and box innermost first, in elements, strides in bytes of dims 1..
-// . Out-of-bounds elements load as zero bits. Returns 0 or a cudaError_t.
+// 128-byte swizzle (the innermost box is 128 bytes: 64 bf16, 128 s8), or
+// `swizzle` (64 bytes: an innermost box of 64 bytes); dims and box
+// innermost first, in elements, strides in bytes of dims 1.. .
+// Out-of-bounds elements load as zero bits. Returns 0 or a cudaError_t.
 inline int encode(CUtensorMap* m, const void* ptr, int rank,
                   const uint64_t* dims, const uint64_t* strides,
                   const uint32_t* box,
-                  CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                  CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static PFN_cuTensorMapEncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -273,8 +282,8 @@ inline int encode(CUtensorMap* m, const void* ptr, int rank,
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult rc = fn(
       m, type, rank, const_cast<void*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = {"preprocess": "preprocess.cu", "bitonic_sort": "bitonic_sort.cu",
            "conv3x3_pair": "conv3x3_pair.cu", "conv_valid": "conv_valid.cu",
            "matmul_wgmma": "matmul_wgmma.cu", "int8_quant": "int8_quant.cu",
-           "int8_conv": "int8_conv.cu"}
+           "int8_conv": "int8_conv.cu",
+           "int8_conv_wgmma": "int8_conv_wgmma.cu"}
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

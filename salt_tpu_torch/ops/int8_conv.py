@@ -1,6 +1,7 @@
 """Int8 convolution of the infer form under ``model.quant_bits=8``: the
 quantizer and the s8 x s8 -> s32 convolution, their CUDA kernels
-(``csrc/int8_quant.cu``, ``csrc/int8_conv.cu``) and their plain versions.
+(``csrc/int8_quant.cu``; ``csrc/int8_conv_wgmma.cu`` and
+``csrc/int8_conv.cu``) and their plain versions.
 
 The JAX package's int8 route is AQT's ``conv_general_dilated``
 (``salt_tpu/models/quant.py:24-34``), an XLA convolution and no Pallas
@@ -37,21 +38,27 @@ bf16 ulps of it (tests/test_torch_int8_conv.py).
   ``csrc/int8_quant.cu`` for a CUDA tensor (one call, two launches: the
   partial abs-maxima of each row's chunks, then the scale and the
   values), :func:`quantize_rows_plain` for a CPU one.
-- :func:`int8_conv2d` -> the dequantized conv: ``csrc/int8_conv.cu`` for
-  a CUDA tensor, :func:`int8_conv2d_plain` (``F.conv2d`` in float64 over
-  the integers, exact, then the same dequantization) for a CPU one.
+- :func:`int8_conv2d` -> the dequantized conv: for a CUDA tensor one of
+  two kernels, as :func:`conv_path` routes the geometry:
+  ``csrc/int8_conv_wgmma.cu`` (TMA + wgmma s8, "wgmma") for the 3x3,
+  stride 1, padding 1, groups 1 convs with C_in a multiple of 64, and
+  ``csrc/int8_conv.cu`` (``mma.sync`` s8, "mma") for every other; for a
+  CPU one :func:`int8_conv2d_plain` (``F.conv2d`` in float64 over the
+  integers, exact, then the same dequantization).
 - :func:`conv2d_int8` quantizes both operands of one conv and runs it;
   ``models.quant.make_conv_fn`` wraps it as an ``F.conv2d``-compatible
   callable.
 
 A CUDA tensor launches the kernels or raises: nothing falls back.
-``quantize_launches`` and ``conv_launches`` count the calls that
-launched each kernel, and nothing else.
+``quantize_launches`` counts the calls that launched the quantizer,
+``wgmma_launches`` and ``mma_launches`` those that launched each conv
+kernel, ``conv_launches`` both, and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple, Union
+import functools
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -72,8 +79,15 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 #: calls that launched the quantize kernel (two launches each)
 quantize_launches = 0
-#: calls that launched the int8 conv kernel (one launch each)
+#: calls that launched an int8 conv kernel (one launch each): either
+#: path, and each path's own
 conv_launches = 0
+wgmma_launches = 0
+mma_launches = 0
+#: output pixels of a tile of the wgmma kernel, and the most pixels its
+#: input slab holds (tile_b x (tile_h + 2) x (tile_w + 2))
+WGMMA_TILE_PIXELS = 256
+WGMMA_SLAB_PIXELS = 432
 
 _Pair = Union[int, Sequence[int]]
 
@@ -158,6 +172,8 @@ def int8_conv2d_plain(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
 
 _CONV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [
     ctypes.c_void_p]
+_WGMMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    ctypes.c_void_p]
 
 
 def conv_geometry(x_shape, w_shape, stride: _Pair, padding: _Pair,
@@ -184,17 +200,64 @@ def conv_geometry(x_shape, w_shape, stride: _Pair, padding: _Pair,
     return out_h, out_w, k, vector
 
 
+def conv_path(x_shape, w_shape, stride: _Pair, padding: _Pair,
+              groups: int) -> str:
+    """The kernel that takes a conv on the card: "wgmma"
+    (``csrc/int8_conv_wgmma.cu``) for a 3x3 kernel, stride 1, padding 1,
+    groups 1, C_in a multiple of 64 and O of 8 (its tensor maps' 16-byte
+    rows); "mma" (``csrc/int8_conv.cu``) for every other geometry."""
+    c, (o, _, kh, kw) = x_shape[1], w_shape
+    if ((kh, kw) == (3, 3) and _pair(stride) == (1, 1)
+            and _pair(padding) == (1, 1) and groups == 1 and c % 64 == 0
+            and o % 8 == 0):
+        return "wgmma"
+    return "mma"
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def wgmma_tile(h: int, w: int) -> Tuple[int, int, int]:
+    """(tile_w, tile_h, tile_b) of the wgmma kernel's 256-pixel tiles on
+    an h x w map: tile_w the power of two from 8 to 64 that covers w,
+    tile_h the rows (at least 4, 8 at tile_w 8: a unit of 64 pixels is
+    whole rows of one image), tile_b whole images where one tile holds
+    several (four 8x8 images), so the slab stays within
+    :data:`WGMMA_SLAB_PIXELS`."""
+    tw = min(64, max(8, _pow2_at_least(w)))
+    th = min(WGMMA_TILE_PIXELS // tw,
+             max(_pow2_at_least(h), 8 if tw == 8 else 4))
+    return tw, th, WGMMA_TILE_PIXELS // (tw * th)
+
+
+@functools.lru_cache(maxsize=1024)
+def _conv_plan(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
+               stride: Tuple[int, int], padding: Tuple[int, int],
+               groups: int) -> Tuple[int, int, str, Optional[tuple]]:
+    """(out_h, out_w, :func:`conv_path`'s path, the wgmma kernel's tile or
+    None) of one geometry; it raises as :func:`conv_geometry` does. Kept
+    per geometry: a forward asks the same few dozen again and again."""
+    out_h, out_w, _, _ = conv_geometry(x_shape, w_shape, stride, padding,
+                                       groups)
+    route = conv_path(x_shape, w_shape, stride, padding, groups)
+    tile = wgmma_tile(x_shape[2], x_shape[3]) if route == "wgmma" else None
+    return out_h, out_w, route, tile
+
+
 def int8_conv2d(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
                 sw: torch.Tensor, stride: _Pair = 1, padding: _Pair = 0,
-                groups: int = 1, out_dtype: torch.dtype = torch.float32
-                ) -> torch.Tensor:
+                groups: int = 1, out_dtype: torch.dtype = torch.float32,
+                path: Optional[str] = None) -> torch.Tensor:
     """The dequantized conv of int8 ``xq`` [B, C, H, W] (scales ``sx``
     [B]) by int8 ``wq`` [O, C / groups, KH, KW] (scales ``sw`` [O]),
-    zero padding, in ``out_dtype`` (fp32 or bf16); by the CUDA kernel for
+    zero padding, in ``out_dtype`` (fp32 or bf16); by a CUDA kernel for
     a CUDA tensor: ``xq`` in channels_last memory (NHWC bytes), ``wq``
     with its channels innermost (``wq.permute(0, 2, 3, 1)`` contiguous),
-    the output channels_last."""
-    global conv_launches
+    the output channels_last. ``path`` None takes :func:`conv_path`'s
+    kernel; "mma" forces ``csrc/int8_conv.cu``, which takes every
+    geometry (the A/B of ``chip_smoke.py``)."""
+    global conv_launches, wgmma_launches, mma_launches
     if xq.ndim != 4 or wq.ndim != 4:
         raise ValueError(f"int8 conv takes x [B, C, H, W] and w "
                          f"[O, C/g, KH, KW], got {tuple(xq.shape)} and "
@@ -203,13 +266,18 @@ def int8_conv2d(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
         raise TypeError(f"int8 conv takes int8, got {xq.dtype}, {wq.dtype}")
     if out_dtype not in DTYPES:
         raise TypeError(f"int8 conv writes fp32 or bf16, not {out_dtype}")
-    out_h, out_w, _, _ = conv_geometry(xq.shape, wq.shape, stride, padding,
-                                       groups)
+    stride, padding = _pair(stride), _pair(padding)
+    out_h, out_w, route, tile = _conv_plan(tuple(xq.shape), tuple(wq.shape),
+                                           stride, padding, groups)
     b, c, h, w = xq.shape
     o, _, kh, kw = wq.shape
     if tuple(sx.shape) != (b,) or tuple(sw.shape) != (o,):
         raise ValueError(f"int8 conv scales {tuple(sx.shape)} and "
                          f"{tuple(sw.shape)} for B {b}, O {o}")
+    if path not in (None, "mma"):
+        raise ValueError(f"int8 conv: path {path!r}: None (conv_path's "
+                         f"kernel) or 'mma'")
+    route = path or route
     if xq.device.type == "cpu":
         return int8_conv2d_plain(xq, sx, wq, sw, stride, padding, groups,
                                  out_dtype)
@@ -234,16 +302,33 @@ def int8_conv2d(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
                       device=xq.device, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    (sh, sw_), (ph, pw) = _pair(stride), _pair(padding)
-    fn = build.function("int8_conv", "salt_int8_conv", _CONV_ARGTYPES)
-    with torch.cuda.device(xq.device):
-        rc = fn(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                out.data_ptr(), b, h, w, c, out_h, out_w, o, kh, kw, sh,
-                sw_, ph, pw, groups, int(out_dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
+    bf16 = int(out_dtype == torch.bfloat16)
+    # the device by its index: torch's lookup of the current device costs
+    # more host time than a small conv's kernel
+    idx = xq.device.index
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(idx).cuda_stream
+        if route == "wgmma":
+            fn = build.function("int8_conv_wgmma", "salt_int8_conv_wgmma",
+                                _WGMMA_ARGTYPES)
+            rc = fn(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(),
+                    sw.data_ptr(), out.data_ptr(), b, h, w, c, o, *tile,
+                    bf16, stream)
+        else:
+            (sh, sw_), (ph, pw) = stride, padding
+            fn = build.function("int8_conv", "salt_int8_conv",
+                                _CONV_ARGTYPES)
+            rc = fn(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(),
+                    sw.data_ptr(), out.data_ptr(), b, h, w, c, out_h, out_w,
+                    o, kh, kw, sh, sw_, ph, pw, groups, bf16, stream)
     if rc != 0:
-        raise RuntimeError(f"int8 conv kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"int8 conv kernel ({route}) launch failed: "
+                           f"cudaError {rc}")
     conv_launches += 1
+    if route == "wgmma":
+        wgmma_launches += 1
+    else:
+        mma_launches += 1
     return out
 
 

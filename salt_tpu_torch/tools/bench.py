@@ -22,8 +22,9 @@
 - ``breakdown``: for the TTA step in bf16 and in int8 (batch 64) and the
   train step (batch 128), host wall and device ms per step, the busy
   share, kernel launches per step, the top kernels, and the hand kernels
-  on the step (preprocess; int8 quantize and conv; the Lovász sort), from
-  ``tools/profiling.step_breakdown``;
+  on the step (preprocess; int8 quantize and both int8 conv kernels,
+  ``int8_conv_wgmma_kernel`` and ``int8_conv_kernel``; the Lovász
+  sort), from ``tools/profiling.step_breakdown``;
 - ``device``: the card's name and power limit (nvidia-smi).
 
 The distilled students and the multichip probe are listed under
@@ -64,6 +65,7 @@ NOT_PORTED = {
 STEP_KERNELS = {"tta_step": ("preprocess_inference_kernel",),
                 "tta_step_int8": ("preprocess_inference_kernel",
                                   "absmax_kernel", "quant_kernel",
+                                  "int8_conv_wgmma_kernel",
                                   "int8_conv_kernel"),
                 "train_step": (KERNEL_PREFIX,)}
 

@@ -4,8 +4,8 @@ versions (the preprocess kernel also at B 0, on extreme edge bytes, on an
 unaligned input and on a side stream), their launch counts and input
 checks, a small serve step on the
 card against the CPU, a predict step through the conv kernel, one bf16
-train step, and the int8 quantize and conv kernels against their plain
-versions and the int8 infer form against the CPU.
+train step, and the int8 quantize and conv kernels (both paths) against
+their plain versions and the int8 infer form against the CPU.
 Marked ``cuda``; they skip where CUDA is absent and run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -770,6 +770,7 @@ def test_bench_tiny_on_card(cuda):
     assert ic.quantize_launches == 2 * ic.conv_launches
     int8 = line["breakdown"]["tta_step_int8"]["kernels"]
     assert int8["int8_conv_kernel"]["launches_per_step"] > 0
+    assert int8["int8_conv_wgmma_kernel"]["launches_per_step"] > 0
     tta = line["breakdown"]["tta_step"]
     train = line["breakdown"]["train_step"]
     assert tta["device_ms"] > 0 and 0 < tta["busy_share"]
@@ -837,11 +838,11 @@ INT8_CONVS = [(4, 3, 64, 64, 64, 7, 2, 3, 1), (3, 64, 32, 32, 64, 3, 1, 1, 1),
 @pytest.mark.parametrize("b,c,h,w,o,k,s,p,g", INT8_CONVS)
 def test_int8_conv_kernel_matches_plain_version(cuda, b, c, h, w, o, k, s, p,
                                                 g, dtype):
-    """The int8 conv kernel against its plain version (float64 conv of the
-    integers, the same dequantization) on the same quantized operands:
-    within one ulp of ``dtype`` (the s32 sums are exact and the two fp32
-    products the same, so the two agree bit for bit but for the order of
-    nothing)."""
+    """The int8 conv kernel that :func:`conv_path` picks against its plain
+    version (float64 conv of the integers, the same dequantization) on the
+    same quantized operands: within one ulp of ``dtype`` (the s32 sums are
+    exact and the two fp32 products the same, so the two agree bit for
+    bit but for the order of nothing); that path's counter moved."""
     from salt_tpu_torch.ops import int8_conv as ic
     gen = torch.Generator().manual_seed(b * c + o)
     x = (torch.randn(b, c, h, w, generator=gen) * 2).to(dtype)
@@ -850,10 +851,11 @@ def test_int8_conv_kernel_matches_plain_version(cuda, b, c, h, w, o, k, s, p,
     xd = x.to(cuda).contiguous(memory_format=torch.channels_last)
     xq, sx = ic.quantize_activation(xd)
     wq, sw = ic.quantize_weight(wt.to(cuda))
-    before = ic.conv_launches
+    before = _int8_counters()
     got = ic.int8_conv2d(xq, sx, wq, sw, s, p, g, dtype)
     torch.cuda.synchronize()
-    assert ic.conv_launches == before + 1
+    assert _int8_counters() == _moved(before, ic.conv_path(
+        xq.shape, wq.shape, s, p, g))
     want = ic.int8_conv2d_plain(xq, sx, wq, sw, s, p, g, dtype)
     assert got.shape == want.shape and got.dtype == dtype
     assert got.is_contiguous(memory_format=torch.channels_last)
@@ -865,6 +867,86 @@ def test_int8_conv_kernel_matches_plain_version(cuda, b, c, h, w, o, k, s, p,
     # and the same conv of the CPU's quantized operands
     xq_c, sx_c = ic.quantize_activation(x)
     assert torch.equal(xq.cpu(), xq_c) and torch.equal(sx.cpu(), sx_c)
+
+
+def _int8_counters():
+    from salt_tpu_torch.ops import int8_conv as ic
+    return ic.conv_launches, ic.wgmma_launches, ic.mma_launches
+
+
+def _moved(before, path):
+    """The counters after one launch of ``path``'s kernel."""
+    total, wgmma, mma = before
+    return (total + 1, wgmma + (path == "wgmma"), mma + (path == "mma"))
+
+
+def _int8_operands(cuda, b, c, h, w, o, dtype, seed):
+    """Random operands of a 3x3 conv quantized on the card: (xq
+    channels_last, sx, wq with its channels innermost, sw)."""
+    from salt_tpu_torch.ops import int8_conv as ic
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(b, c, h, w, generator=gen) * 2).to(dtype)
+    wt = (torch.randn(o, c, 3, 3, generator=gen) / (9 * c) ** 0.5).to(dtype)
+    xq, sx = ic.quantize_activation(
+        x.to(cuda).contiguous(memory_format=torch.channels_last))
+    wq, sw = ic.quantize_weight(wt.to(cuda))
+    return xq, sx, wq, sw
+
+
+#: (batch, C, H, W, O) of stride-1 3x3 convs the wgmma kernel takes: C 64
+#: at 128x128 (64-byte chunks, O 64 and O 32), C 128 / 256 / 512 at the
+#: route's maps, 320 -> 64 (five 64-byte chunks), 8x8 and 16x16 maps at
+#: batches that leave the last four-image tile part empty, O 64 over 512
+#: channels, ragged maps (9x11; 17x70, two 64-wide tile columns); NT 64
+#: (few tiles) on O 128 to 512, and NT 128 (12 x 32x32 -> 256: 96 tiles)
+INT8_WGMMA_CONVS = [(2, 64, 128, 128, 64), (2, 64, 128, 128, 32),
+                    (3, 128, 32, 32, 128), (3, 256, 16, 16, 256),
+                    (5, 512, 8, 8, 512), (2, 512, 8, 8, 64),
+                    (1, 320, 32, 32, 64), (3, 64, 9, 11, 64),
+                    (2, 128, 17, 70, 128), (6, 256, 16, 16, 512),
+                    (12, 128, 32, 32, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,c,h,w,o", INT8_WGMMA_CONVS)
+def test_int8_conv_wgmma_is_bit_exact(cuda, b, c, h, w, o, dtype):
+    """The TMA + wgmma kernel (``csrc/int8_conv_wgmma.cu``) equals its
+    plain version bit for bit (0 ulp: exact s32 sums, the same two fp32
+    products, one rounding), only its counter moves, and the output is
+    channels_last."""
+    from salt_tpu_torch.ops import int8_conv as ic
+    xq, sx, wq, sw = _int8_operands(cuda, b, c, h, w, o, dtype, b * c + o)
+    assert ic.conv_path(xq.shape, wq.shape, 1, 1, 1) == "wgmma"
+    before = _int8_counters()
+    got = ic.int8_conv2d(xq, sx, wq, sw, 1, 1, 1, dtype)
+    torch.cuda.synchronize()
+    assert _int8_counters() == _moved(before, "wgmma")
+    want = ic.int8_conv2d_plain(xq, sx, wq, sw, 1, 1, 1, dtype)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,c,h,w,o", [(2, 64, 128, 128, 64),
+                                       (5, 512, 8, 8, 512)])
+def test_int8_conv_mma_path_on_wgmma_shapes(cuda, b, c, h, w, o):
+    """``path="mma"`` sends a conv of the wgmma kernel's geometry to the
+    mma.sync kernel (``chip_smoke.py``'s A/B): within one bf16 ulp of the
+    plain version, as that kernel's test holds it, and only its counter
+    moves."""
+    from salt_tpu_torch.ops import int8_conv as ic
+    xq, sx, wq, sw = _int8_operands(cuda, b, c, h, w, o, torch.bfloat16, o)
+    before = _int8_counters()
+    got = ic.int8_conv2d(xq, sx, wq, sw, 1, 1, 1, torch.bfloat16,
+                         path="mma").float()
+    torch.cuda.synchronize()
+    assert _int8_counters() == _moved(before, "mma")
+    want = ic.int8_conv2d_plain(xq, sx, wq, sw, 1, 1, 1,
+                                torch.bfloat16).float()
+    _, exp = torch.frexp(want)
+    assert bool(((got - want).abs()
+                 <= torch.ldexp(torch.ones_like(want), exp - 8)).all())
 
 
 def test_int8_wrappers_refuse_bad_inputs(cuda):
@@ -886,14 +968,18 @@ def test_int8_wrappers_refuse_bad_inputs(cuda):
         ic.int8_conv2d(xcl, s16, wq, s16, 1, 1)
     with pytest.raises(ValueError):
         ic.int8_conv2d(xcl, s1, wq[:, :5], s16, 1, 1, groups=3)
+    with pytest.raises(ValueError, match="path"):      # None or "mma"
+        ic.int8_conv2d(xcl, s1, wq, s16, 1, 1, path="wgmma")
     assert (ic.quantize_launches, ic.conv_launches) == before
 
 
 def test_int8_infer_form_on_card_matches_cpu(cuda):
     """UNetResNet-18's int8 infer form (``model.quant_bits=8``) in fp32 on
     the card against the CPU from one seeded model. A free forward on the
-    card launches the kernels once a routed conv (41; quantize twice)
-    and gives finite logits. Its logits cannot be held against the CPU's:
+    card launches the kernels once a routed conv (41; quantize twice;
+    each conv on the path :func:`conv_path` gives its geometry, the
+    wgmma kernel among them) and gives finite logits. Its logits cannot
+    be held against the CPU's:
     the fp32 ops between the convs round in other orders on the two
     devices, and one flipped int8 rounding moves an output by a step of
     the scales, which the next convs carry on (on the CPU a 1e-6 change
@@ -918,11 +1004,12 @@ def test_int8_infer_form_on_card_matches_cpu(cuda):
     cfg.model.quant_bits = 8
     model = init_seeded(build_model(cfg.model), seed=3)
     x = torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(1))
-    conv, sites, seen = quant.conv2d_int8, [], []
+    conv, sites, seen, geometries = quant.conv2d_int8, [], [], []
 
     def recording(a, weight, stride=1, padding=0, groups=1):
         out = conv(a, weight, stride, padding, groups)
         sites.append((a, out))
+        geometries.append((a, weight, stride, padding, groups))
         return out
 
     def forced(a, weight, stride=1, padding=0, groups=1):
@@ -939,15 +1026,20 @@ def test_int8_infer_form_on_card_matches_cpu(cuda):
             quant.conv2d_int8 = conv
         card = copy.deepcopy(model).to(cuda, memory_format=torch.channels_last)
         ic.quantize_launches = ic.conv_launches = 0
+        ic.wgmma_launches = ic.mma_launches = 0
         free = card(x.to(cuda), infer=True)
         torch.cuda.synchronize()
         launches = (ic.conv_launches, ic.quantize_launches)
+        paths = (ic.wgmma_launches, ic.mma_launches)
         quant.conv2d_int8 = forced
         try:
             got = card(x.to(cuda), infer=True).cpu()
         finally:
             quant.conv2d_int8 = conv
     assert launches == (41, 2 * 41)
+    wgmma = sum(ic.conv_path(a.shape, wt.shape, st, pd, gr) == "wgmma"
+                for a, wt, st, pd, gr in geometries)
+    assert paths == (wgmma, 41 - wgmma) and wgmma > 0
     assert bool(torch.isfinite(free).all())
     assert len(seen) == len(sites) == 41
     operand = ulps = 0.0
