@@ -5,7 +5,9 @@ UNetResNet34 at full width, end to end, on its paths — hflip-TTA
 K-fold CV loop (``train-evaluate-predict-cv`` / ``evaluate-predict-cv``)
 — the scratch SaltUNet's train, resume and serve, the other losses, the
 U-Net on the other encoders and the depth net, LargeKernelMatters and
-PSPNet, int8 serving and its quality gate, and the port's bench.
+PSPNet, int8 serving and its quality gate, the second-level pipelines
+(``full-solution``: emptiness CV, stacking, gating, and the commands
+around them), and the port's bench.
 
     python3 chip_smoke.py
 
@@ -100,7 +102,24 @@ Phases (each raises on failure; the script then exits non-zero):
                 ``serve --int8 --synthetic 2048`` at 24 beside bf16;
 18. bench     — ``python -m salt_tpu_torch.tools.bench`` at reduced
                 windows (it prints its JSON line; ``flagship_tta_int8`` at
-                64 beside bf16).
+                64 beside bf16);
+19. full_solution (run between arch2 and int8) — ``cli full-solution``
+                at full width (the flagship's segmentation CV, bf16, hflip
+                TTA, conv kernel "on"; the EmptinessClassifier's CV; the
+                StackingFCN level), cut in depth only: 192 synthetic
+                images, 2 folds (the reference: 6), 1 epoch a first-level
+                fold and 2 a stacking fold (the reference trains both to a
+                plateau), a 48-image test set; the final submission
+                against a numpy gating of the persisted probabilities; an
+                emptiness and a stacking fold checkpoint on the card
+                against the CPU (fp32: probabilities at 2e-3 and the AUC;
+                masks under the margin rule); ``--set
+                execution.resume=true`` (no launch, no ``best.npz``
+                rewritten, the same submission byte for byte); then
+                ``empty-evaluate-predict-cv``, ``ensemble``,
+                ``stacking-cv`` and ``distill`` (SaltUNet-16) over the
+                stage directories, each command's kernel launches against
+                its configuration's.
 Device times of the first seven kernels come from whole profiler
 sessions (``tools/profiling.py``: the profiler loses events), the int8
 convs' from CUDA graphs of back-to-back calls (their whole calls' and
@@ -118,6 +137,7 @@ TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so the fp32 comparisons are
 real fp32 ones; the bf16 paths do not use TF32.
 """
+import contextlib
 import json
 import math
 import os
@@ -2331,13 +2351,14 @@ def phase_arch(dev, card):
 #: a conv callable, so no conv kernel launches in them
 ARCH2_CELLS = (("LargeKernelMatters", 34), ("PSPNet", 34))
 ARCH2_TRAIN = ("PSPNet",)
-#: the modules whose runners are ROADMAP item 16: card against CPU only
+#: the second-level modules, card against CPU (their runners run in the
+#: full_solution phase)
 ARCH2_MODULES = ("EmptinessClassifier", "StackingFCN", "StackingFCNWithDepth")
 
 
 def _module_forward(dev, card, arch):
-    """One module held as a module (its runner is ROADMAP item 16), full
-    width from seeded weights: fp32 logits on the card (TF32 off) against
+    """One module held as a module (its runner runs in the full_solution
+    phase), full width from seeded weights: fp32 logits on the card (TF32 off) against
     the CPU at batch 2, rtol=atol=2e-3 (train mode too, with the same
     batch statistics). A stacking head takes ``input_model_nr`` (18)
     probability maps, the classifier 3 channels; the depth head the
@@ -2447,6 +2468,321 @@ def phase_arch2(dev, card):
             total[k] += sum(c.get(k, 0) for c in counts)
     for arch in ARCH2_MODULES:
         _module_forward(dev, card, arch)
+    return total
+
+
+#: the full_solution phase: synthetic images (2 folds of 96 / 96, a
+#: 48-image test set), cut from the reference's 6 folds trained to a
+#: plateau (depth, not width); the stacking level's own epochs
+N_FULL_SOLUTION = 192
+FS_FOLDS = 2
+FS_STACKING_EPOCHS = 2
+#: images of the card-against-CPU checks of the stage checkpoints
+N_FS_CHECK = 32
+
+
+def _fs_counts():
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops import sort_kernel as sk
+    return dict(preprocess=pk.launches, sort=sk.launches, conv=ck.launches)
+
+
+def _fs_reset():
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops import sort_kernel as sk
+    ck.launches = pk.launches = sk.launches = 0
+
+
+def _fs_command(argv, want, what, card):
+    """``cli.main(argv)`` with the three kernels' counts set to 0 just
+    before and read just after; they must equal ``want``. Returns (wall
+    seconds, counts)."""
+    import torch
+    from salt_tpu_torch import cli
+    _fs_reset()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _fs_counts()
+    if rc != 0 or counts != want:
+        raise AssertionError(f"{what}: rc {rc}, kernel launches {counts}, "
+                             f"expected {want}")
+    log("full_solution", command=what, wall_s=f"{wall:.3f}", **counts,
+        card=repr(card))
+    return wall, counts
+
+
+def _fs_outputs(directory, name):
+    import numpy as np
+    with np.load(os.path.join(directory, "outputs", f"{name}.npz"),
+                 allow_pickle=True) as z:
+        return list(z["ids"]), z["images"]
+
+
+def _fs_gating_check(work):
+    """The final submission recomputed from the persisted test
+    probabilities in numpy: an image whose P(non-empty) is under 0.5 is
+    empty, every other keeps its salt mask (p > 0.5). Same ids, same
+    masks."""
+    import numpy as np
+    seg_ids, seg = _fs_outputs(os.path.join(work, "segmentation"),
+                               "out_of_fold_test_predictions")
+    emp_ids, emp = _fs_outputs(os.path.join(work, "emptiness"),
+                               "emptiness_oof_test_predictions")
+    p_non_empty = dict(zip(emp_ids, emp[:, 1]))
+    keep = np.array([p_non_empty[i] >= 0.5 for i in seg_ids])
+    want = (seg[:, 1] > 0.5) & keep[:, None, None]
+    ids, masks = _csv_masks(os.path.join(work, "final_submission.csv"))
+    if ids != seg_ids or not np.array_equal(masks, want.astype(np.uint8)):
+        raise AssertionError("full_solution: the final submission is not "
+                             "the numpy gating of the persisted "
+                             "probabilities")
+    return int((~keep).sum())
+
+
+def _fs_card_vs_cpu(dev, work, card):
+    """One emptiness and one stacking fold checkpoint of the run on the
+    card and on the CPU, fp32 (TF32 off): the classifier's probabilities
+    of N_FS_CHECK images at 2e-3 and their AUC (equal unless two scores
+    swap order); the stacking head's masks of N_FS_CHECK cubes under the
+    margin rule."""
+    import numpy as np
+    from salt_tpu_torch.core.config import load_config
+    from salt_tpu_torch.core.experiment import Experiment
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.metrics.auc import roc_auc
+    from salt_tpu_torch.pipeline.stacking import join_experiment_predictions
+    from salt_tpu_torch.train.classifier import ClassifierRunner
+    from salt_tpu_torch.train.stacking import StackingRunner
+
+    cfg = load_config(None, {"training.dtype": "float32"})
+    bundle = synthetic_bundle(N_FULL_SOLUTION, seed=cfg.execution.seed)
+    images = bundle.images[:N_FS_CHECK]
+    labels = bundle.meta["is_not_empty"].values[:N_FS_CHECK]
+    arrays = Experiment(os.path.join(work, "emptiness")).load_params(
+        "emptiness_fold_0")
+    cfg.model.architecture = "EmptinessClassifier"
+    probs = {}
+    for where in (dev, "cpu"):
+        runner = ClassifierRunner(cfg, where)
+        probs[str(where)] = runner.predict_dataset(runner.restore(arrays),
+                                                   images)[:, 1]
+    p_card, p_cpu = probs[str(dev)], probs["cpu"]
+    emp_delta = float(np.abs(p_card - p_cpu).max())
+    auc_card, auc_cpu = roc_auc(labels, p_card), roc_auc(labels, p_cpu)
+    swaps = (np.sign(p_card[:, None] - p_card[None])
+             != np.sign(p_cpu[:, None] - p_cpu[None])).any()
+    if emp_delta > 2e-3 or (not swaps and auc_card != auc_cpu):
+        raise AssertionError(f"emptiness card vs CPU: delta {emp_delta}, "
+                             f"AUC {auc_card} vs {auc_cpu}")
+
+    seg = os.path.join(work, "segmentation")
+    _, cube = join_experiment_predictions([seg], "train")
+    cube = cube[:N_FS_CHECK]
+    arrays = Experiment(os.path.join(work, "stacking")).load_params(
+        "stacking_network_fold_0")
+    out = {}
+    for where in (dev, "cpu"):
+        scfg = load_config(None, {"training.dtype": "float32",
+                                  "model.architecture": "StackingFCN",
+                                  "model.input_model_nr": 1})
+        runner = StackingRunner(scfg, where)
+        out[str(where)] = runner.predict_dataset(runner.restore(arrays),
+                                                 cube)[:, 1]
+    s_card, s_cpu = out[str(dev)], out["cpu"]
+    s_delta, undecidable = margin_rule("stacking card vs CPU", s_card, s_cpu,
+                                       s_card > 0.5, s_cpu > 0.5)
+    log("full_solution", check="card_vs_cpu", images=N_FS_CHECK,
+        emptiness_delta=emp_delta, auc_card=auc_card, auc_cpu=auc_cpu,
+        order_swaps=bool(swaps), stacking_delta=s_delta,
+        stacking_undecidable_pixels=undecidable, card=repr(card))
+
+
+@contextlib.contextmanager
+def _stage_timer(seconds):
+    """Record each full-solution stage's wall seconds (to the card's
+    synchronize) into ``seconds`` while the block runs: its three stage
+    functions are wrapped where ``pipeline/full_solution.py`` looks them
+    up."""
+    import torch
+    from salt_tpu_torch.pipeline import api, emptiness, stacking
+    stages = ((api, "train_evaluate_predict_cv", "segmentation"),
+              (emptiness, "train_evaluate_predict_cv", "emptiness"),
+              (stacking, "train_evaluate_stacking", "stacking"))
+    saved = [(module, name, getattr(module, name))
+             for module, name, _ in stages]
+
+    def timed(fn, stage):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[stage] = time.perf_counter() - t0
+            return out
+        return run
+
+    for (module, name, fn), (_, _, stage) in zip(saved, stages):
+        setattr(module, name, timed(fn, stage))
+    try:
+        yield seconds
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def phase_full_solution(dev, card):
+    """``cli full-solution`` at full width as a user runs it: the flagship
+    UNetResNet34 segmentation CV (bf16, hflip TTA, ``model.pallas_conv``
+    "on"), the EmptinessClassifier's CV (its ResNet-18 trunk) and the
+    StackingFCN level (32 filters, one input model), then the gated
+    ``final_submission.csv`` and ``gating_scores.json``. Cut, in depth
+    only: N_FULL_SOLUTION synthetic images in FS_FOLDS folds (the
+    reference: 6 folds of its 4,000 images), 1 epoch a first-level fold
+    and FS_STACKING_EPOCHS a stacking fold (the reference trains both to
+    a plateau). Then: the final submission against a numpy gating of the
+    persisted probabilities; a stage checkpoint of each second-level
+    model on the card against the CPU; ``--set execution.resume=true``
+    on the same workdir (no kernel launch, no ``best.npz`` rewritten,
+    the same submission byte for byte); ``empty-evaluate-predict-cv`` on
+    the emptiness stage (its fold AUCs), ``ensemble`` of the segmentation
+    stage with itself (its submission), ``stacking-cv`` over it and
+    ``distill`` of SaltUNet-16 from it. The preprocess, sort and conv
+    kernels' launches of each command are held against what its
+    configuration implies. Returns their sums."""
+    import filecmp
+    import glob
+    import numpy as np
+
+    n_valid = N_FULL_SOLUTION // FS_FOLDS
+    n_test = max(N_FULL_SOLUTION // 4, 8)
+    val_b = math.ceil(n_valid / SERVE_BATCH)
+    test_b = math.ceil(n_test / SERVE_BATCH)
+    steps = (N_FULL_SOLUTION - n_valid) // TRAIN_BATCH
+    # stage 1 as the cv phase counts it; stage 2 none (the classifier's
+    # inputs are plain ops, its Lovász sorts P = 2 plainly, no conv
+    # callable); stage 3 a sort a train step and a validation-loss batch
+    seg = dict(conv=CONV_KERNEL_PER_FORWARD * FS_FOLDS * (2 * val_b + test_b),
+               preprocess=FS_FOLDS * (3 * val_b + test_b),
+               sort=FS_FOLDS * (steps + val_b))
+    stack_sort = FS_FOLDS * FS_STACKING_EPOCHS * (steps + val_b)
+    want = dict(conv=seg["conv"], preprocess=seg["preprocess"],
+                sort=seg["sort"] + stack_sort)
+    zero = dict(preprocess=0, sort=0, conv=0)
+    total = dict(zero)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, "fs")
+        common = ["--synthetic", str(N_FULL_SOLUTION), "--epochs", "1",
+                  "--set", "postpro.use_tta=true",
+                  "--set", "model.pallas_conv=on",
+                  "--set", f"execution.n_cv_splits={FS_FOLDS}",
+                  "--set", f"training.batch_size_train={TRAIN_BATCH}",
+                  "--set", f"training.batch_size_inference={SERVE_BATCH}"]
+        fs = ["full-solution", "--workdir", work, *common,
+              "--set", f"paths.experiment_dir={tmp}/unused",
+              "--set", f"training.stacking_epochs={FS_STACKING_EPOCHS}"]
+        stage_s = {}
+        with _stage_timer(stage_s):
+            wall, counts = _fs_command(fs, want, "full-solution", card)
+        for k in total:
+            total[k] += counts[k]
+        with open(os.path.join(work, "gating_scores.json")) as f:
+            gating = json.load(f)
+        scores = {}
+        for stage, name in (("segmentation", "cv_scores"),
+                            ("emptiness", "emptiness_cv_scores"),
+                            ("stacking", "stacking_cv_scores")):
+            with open(os.path.join(work, stage, f"{name}.json")) as f:
+                scores[stage] = json.load(f)
+        ids, _ = _csv_masks(os.path.join(work, "final_submission.csv"))
+        if len(ids) != n_test:
+            raise AssertionError(f"final submission: {len(ids)} rows, "
+                                 f"expected {n_test}")
+        gated_out = _fs_gating_check(work)
+        log("full_solution", images=N_FULL_SOLUTION, folds=FS_FOLDS,
+            test_images=n_test, wall_s=f"{wall:.3f}",
+            stage_s={k: round(v, 3) for k, v in stage_s.items()},
+            seg_fold_iout=[round(v, 5) for v in
+                           scores["segmentation"]["fold_iout"]],
+            emptiness_fold_auc=[round(v, 5) for v in
+                                scores["emptiness"]["fold_auc"]],
+            stacking_fold_iout=[round(v, 5) for v in
+                                scores["stacking"]["fold_iout"]],
+            gating=gating, gated_out_test_images=gated_out, card=repr(card))
+        _fs_card_vs_cpu(dev, work, card)
+
+        # resume: every stage complete, nothing trains or predicts
+        best = sorted(glob.glob(os.path.join(work, "*", "checkpoints", "*",
+                                             "best.npz")))
+        mtimes = [os.path.getmtime(p) for p in best]
+        with open(os.path.join(work, "final_submission.csv"), "rb") as f:
+            submission = f.read()
+        _fs_command([*fs, "--set", "execution.resume=true"], zero,
+                    "full-solution resume", card)
+        with open(os.path.join(work, "final_submission.csv"), "rb") as f:
+            same = f.read() == submission
+        if (len(best) != 3 * FS_FOLDS or not same
+                or [os.path.getmtime(p) for p in best] != mtimes):
+            raise AssertionError(f"resume: {len(best)} best.npz, submission "
+                                 f"the same: {same}, or a checkpoint "
+                                 "rewritten")
+
+        # the other commands, on the stage directories
+        emp_dir = os.path.join(work, "emptiness")
+        _, p_stage = _fs_outputs(emp_dir, "emptiness_oof_train_predictions")
+        _fs_command(["empty-evaluate-predict-cv", *common,
+                     "--set", f"paths.experiment_dir={emp_dir}"], zero,
+                    "empty-evaluate-predict-cv", card)
+        _, p_again = _fs_outputs(emp_dir, "emptiness_oof_train_predictions")
+        with open(os.path.join(emp_dir, "emptiness_cv_scores.json")) as f:
+            again = json.load(f)
+        delta = float(np.abs(p_again - p_stage).max())
+        if delta > 2e-3 or (delta == 0.0 and again["fold_auc"]
+                            != scores["emptiness"]["fold_auc"]):
+            raise AssertionError(f"empty-evaluate-predict-cv: delta {delta},"
+                                 f" fold AUC {again['fold_auc']} against "
+                                 f"{scores['emptiness']['fold_auc']}")
+        seg_dir = os.path.join(work, "segmentation")
+        out_csv = os.path.join(tmp, "ensemble.csv")
+        _fs_command(["ensemble", "--experiments", seg_dir, seg_dir,
+                     "--synthetic", str(N_FULL_SOLUTION), "--out", out_csv],
+                    zero, "ensemble", card)
+        if not filecmp.cmp(out_csv, os.path.join(seg_dir, "submission.csv"),
+                           shallow=False):
+            raise AssertionError("ensemble of the segmentation stage with "
+                                 "itself is not its submission")
+        stack_dir = os.path.join(tmp, "stacking_cv")
+        _, counts = _fs_command(
+            ["stacking-cv", "--stacking-experiments", seg_dir, *common,
+             "--set", f"paths.experiment_dir={stack_dir}"],
+            dict(zero, sort=FS_FOLDS * (steps + val_b)), "stacking-cv", card)
+        for k in total:
+            total[k] += counts[k]
+        with open(os.path.join(stack_dir, "stacking_submission.csv")) as f:
+            if sum(1 for _ in f) != n_test + 1:
+                raise AssertionError("stacking-cv: short submission")
+        # distill: fold 0's split, the SaltUNet takes no conv callable
+        distill_dir = os.path.join(tmp, "distill")
+        _, counts = _fs_command(
+            ["distill", "--teacher", seg_dir, *common,
+             "--set", f"paths.experiment_dir={distill_dir}",
+             "--set", "model.architecture=SaltUNet",
+             "--set", "model.n_filters=16"],
+            dict(conv=0, sort=steps + val_b, preprocess=3 * val_b),
+            "distill", card)
+        for k in total:
+            total[k] += counts[k]
+        with open(os.path.join(distill_dir, "distill_report.json")) as f:
+            report = json.load(f)
+        log("full_solution", command="distill", student="SaltUNet-16",
+            student_iout=f"{report['student_iout']:.5f}",
+            teacher_iout=f"{report['teacher_iout']:.5f}", card=repr(card))
+    log("full_solution", phase_wall_s=f"{time.perf_counter() - t_phase:.3f}")
+    log("full_solution", **{f"{k}_launches": v for k, v in total.items()},
+        card=repr(card))
     return total
 
 
@@ -3020,6 +3356,7 @@ def main():
     phase_losses(dev)
     arch = phase_arch(dev, smi)
     arch2 = phase_arch2(dev, smi)
+    full = phase_full_solution(dev, smi)
     int8_wgmma, int8_conv, int8_quant, int8 = phase_int8(dev, smi)
     bench_counts = phase_bench(smi)
     preprocess["launches"] = (serve_preprocess + train_preprocess
@@ -3029,12 +3366,13 @@ def main():
                               + salt_unet["preprocess"]
                               + bench_counts["preprocess"]
                               + arch["preprocess"] + arch2["preprocess"]
-                              + int8["preprocess"])
+                              + full["preprocess"] + int8["preprocess"])
     sort["launches"] = (train_sort + cv_on["sort"] + meta["sort"]
                         + salt_unet["sort"] + bench_counts["sort"]
-                        + arch["sort"] + arch2["sort"])
+                        + arch["sort"] + arch2["sort"] + full["sort"])
     conv["launches"] = (serve_conv + cv_on["conv"] + ab_launches
-                        + arch["conv"] + arch2["conv"] + int8["conv"])
+                        + arch["conv"] + arch2["conv"] + full["conv"]
+                        + int8["conv"])
     int8_wgmma["launches"] = (int8["int8_wgmma"] + cv_int8["int8_wgmma"]
                               + bench_counts["int8_wgmma"])
     int8_conv["launches"] = (int8["int8_mma"] + cv_int8["int8_mma"]
@@ -3053,12 +3391,15 @@ def main():
         preprocess_bench=bench_counts["preprocess"],
         preprocess_arch=arch["preprocess"],
         preprocess_arch2=arch2["preprocess"],
+        preprocess_full_solution=full["preprocess"],
         preprocess_int8=int8["preprocess"], sort_train=train_sort,
         sort_cv=cv_on["sort"], sort_metadata=meta["sort"],
         sort_salt_unet=salt_unet["sort"], sort_bench=bench_counts["sort"],
         sort_arch=arch["sort"], sort_arch2=arch2["sort"],
+        sort_full_solution=full["sort"],
         conv_serve=serve_conv, conv_cv=cv_on["conv"], conv_ab=ab_launches,
-        conv_arch=arch["conv"], conv_int8=int8["conv"],
+        conv_arch=arch["conv"], conv_full_solution=full["conv"],
+        conv_int8=int8["conv"],
         int8_conv_wgmma_int8=int8["int8_wgmma"],
         int8_conv_wgmma_gate=cv_int8["int8_wgmma"],
         int8_conv_wgmma_bench=bench_counts["int8_wgmma"],

@@ -8,15 +8,16 @@ under the same name:
                                experiment store and flat-npz checkpoints,
                                device selection
 - ``salt_tpu_torch.data``      PNG pack decoding, synthetic data, bundles,
-                               K-fold split, batch feed
+                               K-fold split, batch feed, auxiliary crops,
+                               dataset statistics, the integrity checks
 - ``salt_tpu_torch.ops``       preprocessing (plain torch + the CUDA kernel),
                                augmentation, the bitonic sort (plain torch +
                                the CUDA kernel), the int8 quantize and conv
-                               (plain torch + CUDA kernels), TTA, RLE codec,
-                               kernel build
+                               (plain torch + CUDA kernels), TTA, RLE and
+                               COCO RLE codecs, kernel build
 - ``salt_tpu_torch.losses``    the Lovász hinge / softmax, stable BCE, dice
                                and the mixed dice losses, the focal loss
-- ``salt_tpu_torch.metrics``   IoU / IOUT
+- ``salt_tpu_torch.metrics``   IoU / IOUT, ROC-AUC
 - ``salt_tpu_torch.models``    the U-Net (ResNet 18-152, SE-ResNet,
                                SE-ResNeXt or DenseNet encoder, scSE decoder,
                                hypercolumn head), the depth-gated U-Net, the
@@ -26,10 +27,14 @@ under the same name:
                                ``model.quant_bits``, the flax-checkpoint
                                bridge and the pretrained encoder import
 - ``salt_tpu_torch.train``     ``SegmentationRunner`` (train, eval and predict
-                               steps), train state, callbacks, the fit loop,
-                               the throughput probes
+                               steps) and its classifier, stacking and
+                               distillation runners, train state, callbacks,
+                               the fit loops, the throughput probes
 - ``salt_tpu_torch.pipeline``  the ``train``, CV and ``serve`` entry points,
-                               the int8 quality gate
+                               the int8 quality gate, the emptiness and
+                               stacking CVs, ``full-solution``, ensembling,
+                               distillation, the analysis and preview
+                               reports
 - ``salt_tpu_torch.tools``     the probes, A/Bs, the bench and the profiler
                                reading
 

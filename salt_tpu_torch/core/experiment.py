@@ -203,6 +203,15 @@ class Experiment:
                              {"ids": np.array(ids, dtype=object),
                               "images": np.asarray(images)}, compressed=True)
 
+    def load_predictions(self, name: str) -> Dict[str, Any]:
+        """``{"ids": [...], "images": ndarray}`` of ``outputs/<name>.npz``,
+        as either package wrote it."""
+        with np.load(self.output_path(name), allow_pickle=True) as data:
+            return {"ids": list(data["ids"]), "images": data["images"]}
+
+    def has_output(self, name: str) -> bool:
+        return os.path.exists(self.output_path(name))
+
     def save_json(self, name: str, payload: Any) -> str:
         path = os.path.join(self.directory, f"{name}.json")
         _atomic_write_text(path, json.dumps(payload, indent=2, default=float))

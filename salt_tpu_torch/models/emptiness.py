@@ -3,8 +3,8 @@
 pool, the mean over H and W of its last stage, and an fp32 1x1
 ``classifier`` conv with bias; logits [B, num_classes].
 
-Its runner (the ``empty-*`` commands) is ROADMAP Queue A item 16; here
-it is a module held against the JAX package's.
+Its runner is ``train/classifier.py::ClassifierRunner`` (the ``empty-*``
+commands, ``full-solution``).
 """
 from __future__ import annotations
 

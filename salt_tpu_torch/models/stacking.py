@@ -5,8 +5,8 @@ channel dropout in train mode, then the fp32 1x1 ``final`` conv;
 ``StackingFCNWithDepth`` gates the features with the depth
 (``depth_gate``, ``blocks.DepthChannelExcitation``) before ``final``.
 
-Their runner (``stacking-cv``) is ROADMAP Queue A item 16; here they are
-modules held against the JAX package's.
+Their runner is ``train/stacking.py::StackingRunner`` (``stacking-cv``,
+``full-solution``).
 """
 from __future__ import annotations
 

@@ -281,6 +281,16 @@ def apply_augment(params: AugmentParams, images: torch.Tensor,
     return intensity_ops(params, filter_ops(params, out_i)), out_m
 
 
+def apply_augment_images(params: AugmentParams,
+                         images: torch.Tensor) -> torch.Tensor:
+    """:func:`apply_augment` without a mask (``augment_batch_images`` of
+    the JAX package: the same draws, the image's ops only)."""
+    h, w = images.shape[-2:]
+    ys, xs = make_warp_coords(params, h, w)
+    return intensity_ops(params,
+                         filter_ops(params, bilinear_sample(images, ys, xs)))
+
+
 def augment_batch(generator: torch.Generator, images: torch.Tensor,
                   masks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw from ``generator`` and apply (``augment_batch`` of the JAX

@@ -25,8 +25,14 @@
   351-362``): its validation probabilities are the int8 path's, and a
   float runner, made once at the first fold, predicts the same split.
 
-Not ported yet, each raising ``NotImplementedError``: auxiliary data
-(ROADMAP.md Queue A item 16) and ``parallel.fold_parallel`` (item 17).
+- ``execution.use_auxiliary_data`` (JAX ``pipeline/api.py:165-178,
+  232-240,310-313``): the small-mask crops (``data/auxiliary.py``) are
+  generated once from the whole bundle, and each fit trains on its train
+  split plus the crops whose source image is in its validation split
+  (reference: main.py:464-467).
+
+Not ported yet, raising ``NotImplementedError``: ``parallel.fold_parallel``
+(ROADMAP.md Queue A item 17).
 """
 from __future__ import annotations
 
@@ -146,12 +152,30 @@ def load_last(runner: SegmentationRunner, experiment: Experiment,
     return state, int(meta.get("epoch", -1)) + 1
 
 
-def _with_auxiliary(config: Config, train_b: DataBundle) -> DataBundle:
-    if config.execution.use_auxiliary_data:
-        raise NotImplementedError(
-            "execution.use_auxiliary_data: auxiliary small-mask crops are "
-            "not ported yet (ROADMAP.md Queue A item 16)")
-    return train_b
+def _auxiliary(config: Config, bundle: DataBundle,
+               aux: Optional[DataBundle]) -> Optional[DataBundle]:
+    """The crops of ``bundle`` when ``execution.use_auxiliary_data`` asks
+    for them and the caller gave none."""
+    if config.execution.use_auxiliary_data and aux is None:
+        from salt_tpu_torch.data.auxiliary import generate_auxiliary_bundle
+        aux = generate_auxiliary_bundle(bundle)
+        logger.info("generated %d auxiliary small-mask crops", len(aux))
+    return aux
+
+
+def _with_auxiliary(config: Config, train_b: DataBundle,
+                    valid_b: DataBundle,
+                    aux: Optional[DataBundle]) -> DataBundle:
+    """USE_AUXILIARY_DATA: the train split plus the crops whose SOURCE
+    image is in the validation split (reference: main.py:464-467)."""
+    if not config.execution.use_auxiliary_data or aux is None or not len(aux):
+        return train_b
+    from salt_tpu_torch.data.auxiliary import (auxiliary_rows_for_fold,
+                                               concat_bundles)
+    picked = auxiliary_rows_for_fold(aux, valid_b.meta["id"].tolist())
+    logger.info("auxiliary data: adding %d crops to the train split",
+                len(picked))
+    return concat_bundles(train_b, picked)
 
 
 def _fit_fold(config: Config, experiment: Experiment, name: str,
@@ -183,14 +207,16 @@ def _fit_fold(config: Config, experiment: Experiment, name: str,
 
 
 def train(config: Config, experiment: Experiment, bundle: DataBundle,
-          device: Union[str, torch.device] = "cuda") -> SegmentationRunner:
+          device: Union[str, torch.device] = "cuda",
+          aux: Optional[DataBundle] = None) -> SegmentationRunner:
     """Single-fold training on the first depth-stratified fold
     (reference: main.py:454-488), on ``device`` (CUDA unless the caller
     asks for the CPU)."""
     runner = SegmentationRunner(config, device)
+    aux = _auxiliary(config, bundle, aux)
     train_idx, valid_idx = _first_fold(config, bundle)
     train_b, valid_b = bundle.take(train_idx), bundle.take(valid_idx)
-    train_b = _with_auxiliary(config, train_b)
+    train_b = _with_auxiliary(config, train_b, valid_b, aux)
     if config.execution.dev_mode:
         train_b = train_b.dev_sample(config.execution.dev_mode_size,
                                      config.execution.seed)
@@ -269,7 +295,8 @@ def predict(config: Config, experiment: Experiment, test_bundle: DataBundle,
 
 def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
              test_bundle: Optional[DataBundle], do_train: bool,
-             device: Union[str, torch.device] = "cuda") -> Dict:
+             device: Union[str, torch.device] = "cuda",
+             aux: Optional[DataBundle] = None) -> Dict:
     """Every fold: fit (``do_train``), predict its validation split and
     score it, predict the test bundle; then ``cv_scores.json``, the
     out-of-fold predictions and, with a test bundle, the submission
@@ -291,6 +318,8 @@ def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
     test_preds: List[np.ndarray] = []
     runner = SegmentationRunner(config, device)
     runner_fp = None                   # the int8 gate's float runner
+    if do_train:
+        aux = _auxiliary(config, bundle, aux)
     for fold_id, (train_idx, valid_idx) in enumerate(
             cv.split(bundle.meta["z"].values)):
         name = add_fold_suffix(NETWORK, fold_id)
@@ -298,7 +327,8 @@ def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
         logger.info("Started fold %d", fold_id)
         if do_train:
             _fit_fold(config, experiment, name,
-                      _with_auxiliary(config, train_b), valid_b, runner)
+                      _with_auxiliary(config, train_b, valid_b, aux),
+                      valid_b, runner)
         probs = _predict_bundles(runner, experiment, name, valid_b,
                                  *([] if test_bundle is None else [test_bundle]))
         probs_valid = probs[0]

@@ -56,8 +56,8 @@ from salt_tpu_torch.train.throughput import (measure_tta_throughput,
                                              measure_train_throughput)
 
 NOT_PORTED = {
-    "distill": "not ported: ROADMAP Queue A item 16 (the distilled students "
-               "and their serve rate)",
+    "distill": "not ported: ROADMAP Queue A item 19 (tools/distill_curve.py"
+               ": the distilled students and their serve rate)",
     "multichip_dp_tta": "not ported: ROADMAP Queue A item 17 (data "
                         "parallelism)",
 }

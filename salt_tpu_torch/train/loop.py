@@ -1,7 +1,9 @@
 """The fit loop: epochs of train steps and a full validation pass with the
 threshold sweep (counterpart of ``salt_tpu/train/loop.py`` :36-192).
 
-- Batches are uint8 slices of the packed arrays, shuffled by
+- Batches are slices of the packed arrays (uint8 images and masks; a
+  stacking runner's float probability cubes, a distillation runner's
+  uint16 target packs), shuffled by
   ``np.random.RandomState(seed)`` as in the JAX package, so the batch
   order is the same in both; each goes to the device one batch ahead
   (``data.pipeline.prefetch_to_device``).
@@ -108,8 +110,12 @@ def fit(runner: SegmentationRunner,
         seed: int = 1234,
         start_epoch: int = 0) -> Tuple[TrainState, list]:
     """Train on packed arrays: ``train_data`` / ``valid_data`` are
-    (images_u8 [N, 101, 101], masks_u8 [N, 101, 101]) or those and the
-    depths [N] (or None)."""
+    (images [N, 101, 101], masks [N, 101, 101]) or those and the depths
+    [N] (or None). Images are uint8, or whatever the runner's
+    ``train_step`` and ``predict_step`` take (``StackingRunner``: float
+    [N, 101, 101, M] cubes); the train masks are uint8, or the targets
+    its ``train_step`` takes (``DistillRunner``: uint16 packs); the
+    validation masks are uint8."""
     cfg = runner.config
     images, masks, depths = (*train_data, None)[:3]
     bs = min(cfg.training.batch_size_train, images.shape[0])

@@ -206,17 +206,21 @@ class SegmentationRunner:
         x = add_depth_channels(normalize_gray(x))
         return x.permute(0, 3, 1, 2), one_hot_target(m)
 
+    def train_loss(self, logits: torch.Tensor, y) -> torch.Tensor:
+        """The training loss of NCHW ``logits`` against the NHWC target."""
+        return self.loss_fn(logits.permute(0, 2, 3, 1), y)
+
     def update(self, state: TrainState, x: torch.Tensor, y: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                depths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Forward in train mode, the loss over NHWC logits, backward, one
-        Adam step; BatchNorm statistics move in the forward. Returns the
+        """Forward in train mode, :meth:`train_loss`, backward, one Adam
+        step; BatchNorm statistics move in the forward. Returns the
         loss (a 0-d tensor on the device)."""
         model = state.model
         model.train()
         logits = model(x, generator,
                        depth=self.depth_input(depths, x.shape[0]))
-        loss = self.loss_fn(logits.permute(0, 2, 3, 1), y)
+        loss = self.train_loss(logits, y)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()

@@ -40,7 +40,7 @@ def test_bench_line_keys_on_the_cpu(capsys):
     assert line["serve_synthetic_2048"]["quant_bits"] == 8
     assert set(line["not_ported"]) == {"distill", "multichip_dp_tta"}
     assert [v.split("item ")[1][:2] for v in line["not_ported"].values()] \
-        == ["16", "17"]
+        == ["19", "17"]
     for key in ("flagship_tta_bf16", "flagship_tta_int8", "flagship_train",
                 "salt_unet16_tta", "serve_synthetic_2048"):
         assert line[key]["value"] > 0 and "chip" not in line[key]["unit"]

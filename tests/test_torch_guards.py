@@ -1,8 +1,9 @@
 """The port stands alone and never falls back to the CPU silently.
 
 (g) importing every ``salt_tpu_torch`` module loads no ``jax``, ``flax``,
-``aqt`` or ``salt_tpu``; (h) every entry point called without ``device`` raises
-where CUDA is absent; (i) the kernels' wrappers refuse what their kernel
+``optax``, ``aqt`` or ``salt_tpu``; (h) every entry point called without
+``device`` raises where CUDA is absent (and the CLI's item-17 parts raise
+``NotImplementedError``); (i) the kernels' wrappers refuse what their kernel
 cannot take before any launch."""
 import os
 import subprocess
@@ -37,13 +38,19 @@ for needed in ("pipeline.serving", "ops.preprocess_kernel", "ops.sort_kernel",
                "models.models_with_depth", "models.torch_import",
                "models.large_kernel_matters", "models.pspnet",
                "models.stacking", "models.emptiness", "models.quant",
-               "ops.int8_conv", "pipeline.quality"):
+               "ops.int8_conv", "pipeline.quality", "metrics.auc",
+               "ops.coco_rle", "data.auxiliary", "data.stats", "data.verify",
+               "train.classifier", "train.stacking", "train.distill",
+               "pipeline.emptiness", "pipeline.stacking",
+               "pipeline.full_solution", "pipeline.ensemble",
+               "pipeline.analysis", "pipeline.preview", "pipeline.distill"):
     assert "salt_tpu_torch." + needed in names, names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "salt_tpu", "aqt")
-             or m.startswith(("jax.", "flax.", "salt_tpu.", "aqt.")))
+             if m in ("jax", "flax", "optax", "salt_tpu", "aqt")
+             or m.startswith(("jax.", "flax.", "optax.", "salt_tpu.",
+                              "aqt.")))
 assert not bad, bad
 print(len(names))
 """
@@ -52,7 +59,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 42
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 57
 
 
 @pytest.fixture
@@ -82,6 +89,28 @@ def test_cli_defaults_to_cuda_and_raises(no_cuda, tmp_path):
         cli.main(["serve", "--checkpoint", str(tmp_path / "ckpt.npz"),
                   "--images-dir", str(tmp_path),
                   "--out", str(tmp_path / "s.csv")])
+
+
+@pytest.mark.parametrize("command", ["empty-cv", "empty-train",
+                                     "full-solution", "stacking-cv",
+                                     "distill", "augment-preview"])
+def test_cli_new_commands_default_to_cuda_and_raise(no_cuda, tmp_path,
+                                                    command):
+    from salt_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main([command, "--synthetic", "8", "--epochs", "1",
+                  "--workdir", str(tmp_path / "w"),
+                  "--set", f"paths.experiment_dir={tmp_path / 'e'}"])
+    assert not (tmp_path / "e").exists() and not (tmp_path / "w").exists()
+
+
+@pytest.mark.parametrize("argv", [["cost-analysis"],
+                                  ["train", "--profile", "trace"],
+                                  ["train", "--trace-steps"]])
+def test_cli_item_17_raises(argv):
+    from salt_tpu_torch import cli
+    with pytest.raises(NotImplementedError, match="item 17"):
+        cli.main([*argv, "--device", "cpu"])
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_launch():

@@ -26,8 +26,6 @@ gradients' tolerance of 0 the two packages may step in opposite
 directions. Those elements (|g_jax| at most 10x the gradient tolerance)
 are held to ``|delta| <= 2 lr``; every other element to 1e-3 lr.
 """
-import copy
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,9 +34,10 @@ import torch
 
 from torch_parity import (flagship_config, port_config, seeded_images,
                           seeded_jax_variables)
+from torch_train_parity import flat_like as _flat_like
+from torch_train_parity import flatten_prefixed as _flatten
 from torch_train_parity import jax_augment_params
 
-from salt_tpu.core.experiment import _path_str
 from salt_tpu.models.unet import UNetResNet as JaxUNetResNet
 from salt_tpu.train.steps import SegmentationRunner as JaxRunner
 from salt_tpu_torch.models.convert import load_flax_flat, to_flax_flat
@@ -56,22 +55,6 @@ LR = 1e-4
 
 def _masks(images):
     return (images > 140).astype(np.uint8)
-
-
-def _flat_like(model, tensors):
-    """Per-parameter tensors (grads, moments) under the flat flax keys."""
-    clone = copy.deepcopy(model).float()
-    with torch.no_grad():
-        for pc, t in zip(clone.parameters(), tensors):
-            pc.copy_(t)
-    return {k: v for k, v in to_flax_flat(clone).items()
-            if k.startswith("params/")}
-
-
-def _flatten(tree, prefix):
-    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
-    return {prefix + "/" + "/".join(_path_str(p) for p in path):
-            np.asarray(leaf, np.float64) for path, leaf in flat}
 
 
 def _jax_float64_step(jr, params, stats, x, y):

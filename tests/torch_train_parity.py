@@ -53,3 +53,91 @@ def jax_augment_params(key, b, h, w):
         out[name] = torch.from_numpy(np.ascontiguousarray(v))
     out["branch"] = out["branch"].to(torch.int64)
     return AugmentParams(**out)
+
+
+def flatten_prefixed(tree, prefix):
+    """A JAX pytree as float64 numpy arrays under flat ``prefix/...``
+    keys."""
+    from salt_tpu.core.experiment import _path_str
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {prefix + "/" + "/".join(_path_str(p) for p in path):
+            np.asarray(leaf, np.float64) for path, leaf in flat}
+
+
+def flat_like(model, tensors):
+    """Per-parameter tensors (grads, moments) of ``model`` under its flat
+    flax ``params/...`` keys."""
+    import copy
+
+    from salt_tpu_torch.models.convert import to_flax_flat
+    clone = copy.deepcopy(model).float()
+    with torch.no_grad():
+        for pc, t in zip(clone.parameters(), tensors):
+            pc.copy_(t)
+    return {k: v for k, v in to_flax_flat(clone).items()
+            if k.startswith("params/")}
+
+
+def jax_float64_step(model64, tx, params, stats, x, loss):
+    """JAX's gradients and one ``tx.update`` of ``model64`` (a flax model
+    built with dtype float64) at ``params`` / ``stats`` on the input
+    ``x``; ``loss(out)`` is the loss of its train-mode output. Returns
+    (grads, new params, old params) as flat float64 dicts."""
+    with jax.enable_x64(True):
+        import jax.numpy as jnp
+        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
+        s64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats)
+
+        def f(p):
+            out, _ = model64.apply({"params": p, "batch_stats": s64},
+                                   jnp.asarray(x, jnp.float64), train=True,
+                                   mutable=["batch_stats"])
+            return loss(out)
+
+        grads = jax.jit(jax.grad(f))(p64)
+        updates, _ = tx.update(grads, tx.init(p64), p64)
+        new = jax.tree.map(lambda p, u: p + u, p64, updates)
+        return (flatten_prefixed(grads, "params"),
+                flatten_prefixed(new, "params"),
+                flatten_prefixed(p64, "params"))
+
+
+def port_float64_step(runner, flat, x, y, lr):
+    """The port's ``runner.update`` with its model (weights ``flat``) in
+    float64 on ``x``; returns (grads, new params) as flat dicts."""
+    from salt_tpu_torch.models.convert import load_flax_flat
+    from salt_tpu_torch.models.registry import build_model
+    from salt_tpu_torch.train.state import TrainState, make_optimizer
+    m64 = build_model(runner.config.model)
+    load_flax_flat(m64, flat)
+    m64 = m64.double()
+    m64.compute_dtype = torch.float64
+    state = TrainState(m64, make_optimizer(
+        m64, lr, runner.config.training.l2_reg_conv))
+    runner.update(state, x.double(), y)
+    return (flat_like(m64, [p.grad for p in m64.parameters()]),
+            flat_like(m64, list(m64.parameters())))
+
+
+def assert_step_matches(jgrads, jparams, old, pgrads, pparams, lr, l2,
+                        max_free=0.01):
+    """tests/test_torch_train_step.py's rules in float64: gradients to
+    1e-4 of each leaf's max; Adam's first step ~ -lr sign(g + l2 p), so
+    where |g + l2 p| is within 10x the gradients' tolerance of 0 the
+    step is held to |delta| <= 2 lr, elsewhere to 1e-3 lr (under
+    ``max_free`` of the elements free)."""
+    assert set(jgrads) == set(pgrads)
+    n_free = 0
+    for k, g in jgrads.items():
+        tol = 1e-4 * float(np.abs(g).max()) + 1e-12
+        np.testing.assert_allclose(pgrads[k], g, rtol=1e-4, atol=tol,
+                                   err_msg=k)
+        free = np.abs(g + l2 * old[k]) <= 10 * tol
+        n_free += int(free.sum())
+        d_got = pparams[k] - old[k]
+        d_want = jparams[k] - old[k]
+        assert np.all(np.abs(d_got[free]) <= 2 * lr * (1 + 1e-3)), k
+        np.testing.assert_allclose(d_got[~free], d_want[~free], rtol=0,
+                                   atol=1e-3 * lr, err_msg=k)
+    total = sum(v.size for v in jparams.values())
+    assert n_free < max_free * total, (n_free, total)
