@@ -100,6 +100,22 @@ Phases (each raises on failure; the script then exits non-zero):
                 launches per forward
                 against the route's sites;
                 ``serve --int8 --synthetic 2048`` at 24 beside bf16;
+10b. fold_parallel (run after cv) — ``parallel.fold_parallel``: the 6
+                folds of the flagship (bf16, batch 24 each, conv kernel
+                "on") as one vmapped step; ``cli train-evaluate-predict-cv
+                --set parallel.fold_parallel=true``, 1 epoch over 480
+                synthetic images (the sort kernel once a step over 6 x 24
+                rows; each fold's ``best.npz`` served), the aligned step
+                against each fold's sequential step (float64 with the
+                gradients, fp32 and bf16), and one fold-parallel step
+                timed beside six sequential steps;
+10c. tooling  — ``cli train --trace-steps --profile DIR`` at batch 24
+                (the five phases; the sort kernel in the Chrome trace)
+                and ``cli cost-analysis`` of the flagship (train,
+                predict, TTA steps; temp bytes above 0);
+10d. data_parallel — a process group of one on NCCL: one data-parallel
+                train step (BN sums and gradients all-reduced) against
+                the plain step, fp32;
 18. bench     — ``python -m salt_tpu_torch.tools.bench`` at reduced
                 windows (it prints its JSON line; ``flagship_tta_int8`` at
                 64 beside bf16);
@@ -145,11 +161,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
-BF16_DENSE_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
-INT8_DENSE_OPS = 1979e12         # H100 SXM int8 tensor cores, dense
 
 N_SERVE_IMAGES = 2048
 N_FOLDS = 2
@@ -262,17 +273,6 @@ def phase_build():
     log("build", kernels=len(libs), seconds=f"{seconds:.2f}")
 
 
-def _preprocess_bound(b, out_bytes):
-    """(bound s, "bytes" or "operations") of the preprocess kernel at
-    batch ``b``: each input byte read and each output byte written once;
-    /255, -mean, /std, ramp and gray * ramp per pixel in fp32."""
-    bytes_moved = b * 101 * 101 + out_bytes
-    flops = b * 128 * 128 * 6
-    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
-        "operations"
-
-
 def phase_kernel(dev):
     """The preprocess kernel against its plain version: fp32 within
     atol=1e-5 and bf16 within one bf16 ulp of the plain fp32 result cast
@@ -285,6 +285,7 @@ def phase_kernel(dev):
     as serve calls it (the record), and at B = 24 in both dtypes (a
     validation batch), each beside its bound."""
     import torch
+    from salt_tpu_torch.ops import costs
     from salt_tpu_torch.ops import preprocess_kernel as pk
     from salt_tpu_torch.ops.preprocess import preprocess_inference
     max_err = 0.0
@@ -332,8 +333,9 @@ def phase_kernel(dev):
         def plain():
             return preprocess_inference(imgs, "edge", dtype)
 
-        out_bytes = b * 128 * 128 * 3 * torch.finfo(dtype).bits // 8
-        bound_s, bound_by = _preprocess_bound(b, out_bytes)
+        with costs.recording() as launched:
+            kernel()
+        bound_ms, bound_by = costs.launches_bound_ms(launched)
         for tries in range(1, MEASURE_TRIES + 1):
             # device time per call from the profiler; back-to-back CUDA
             # events measure the host's enqueue rate for a kernel this short
@@ -343,15 +345,15 @@ def phase_kernel(dev):
             timed_by = "profiler"
             if ms == 0.0 or plain_ms == 0.0:
                 ms, plain_ms, timed_by = enqueue_ms, plain_enqueue_ms, "events"
-            if not under_bound(bound_s * 1e3, ms=ms, plain_ms=plain_ms):
+            if not under_bound(bound_ms, ms=ms, plain_ms=plain_ms):
                 break
-        check_bound(f"preprocess kernel B={b} {dtype}", bound_s * 1e3,
+        check_bound(f"preprocess kernel B={b} {dtype}", bound_ms,
                     ms=ms, plain_ms=plain_ms)
         log("kernel", name="preprocess_inference", batch=b,
             dtype=str(dtype).split(".")[-1], ms=f"{ms:.5f}",
-            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_s * 1e3:.5f}",
-            bound_share=f"{bound_s * 1e3 / ms:.3f}", bound_by=bound_by,
-            bytes=b * 101 * 101 + out_bytes, timed_by=timed_by, tries=tries,
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+            bound_share=f"{bound_ms / ms:.3f}", bound_by=bound_by,
+            bytes=launched[0].nbytes, timed_by=timed_by, tries=tries,
             enqueue_ms=f"{enqueue_ms:.5f}",
             plain_enqueue_ms=f"{plain_enqueue_ms:.5f}")
         if record is None:
@@ -359,7 +361,7 @@ def phase_kernel(dev):
                       "source": "salt_tpu_torch/csrc/preprocess.cu",
                       "replaces": "salt_tpu/ops/pallas_preprocess.py:38",
                       "launches": None, "max_abs_err": max_err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": None}
     return record
 
@@ -776,6 +778,7 @@ def _time_sort(dev, rows):
     gather, by the profiler (CUDA events where it records no device
     time), beside the bound; logged, and returned as a kernels entry."""
     import torch
+    from salt_tpu_torch.ops import costs
     from salt_tpu_torch.ops import sort_kernel as sk
     from salt_tpu_torch.ops.bitonic import bitonic_sort_desc
     keys, payload = _sort_inputs(rows, SORT_LENGTH, "distinct", seed=11)
@@ -792,13 +795,10 @@ def _time_sort(dev, rows):
         return sk.sort_desc(keys, payload)
 
     plan = sk.card_plan(rows, SORT_LENGTH, dev)
-    n = rows * SORT_LENGTH
-    bytes_moved = n * 16            # keys and payload, read once, written once
-    n_exp = SORT_LENGTH.bit_length() - 1
-    compare_exchanges = n_exp * (n_exp + 1) // 2 * (n // 2)
-    bound_s = max(bytes_moved / HBM_BYTES_PER_S, compare_exchanges / FP32_FLOPS)
-    bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S
-                >= compare_exchanges / FP32_FLOPS else "operations")
+    with costs.recording() as launched:
+        kernel()
+    (cost,) = launched
+    bound_ms, bound_by = costs.launches_bound_ms(launched)
     for tries in range(1, MEASURE_TRIES + 1):
         ms = device_ms(kernel, match=sk.KERNEL_PREFIX, iters=20,
                        launches_per_call=len(plan))
@@ -811,19 +811,19 @@ def _time_sort(dev, rows):
             ms, plain_ms, library_ms = (events["ms"], events["plain_ms"],
                                         events["library_ms"])
             timed_by = "events"
-        if not under_bound(bound_s * 1e3, ms=ms, plain_ms=plain_ms,
+        if not under_bound(bound_ms, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms):
             break
-    check_bound(f"sort [{rows}, {SORT_LENGTH}]", bound_s * 1e3, ms=ms,
+    check_bound(f"sort [{rows}, {SORT_LENGTH}]", bound_ms, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms)
     log("kernel", name="bitonic_sort_desc", rows=rows, length=SORT_LENGTH,
         chunk=1 << plan[0].log_chunk, ms=f"{ms:.5f}",
         plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
-        bound_ms=f"{bound_s * 1e3:.5f}", bound_by=bound_by,
-        share_of_bound=f"{bound_s * 1e3 / ms:.4f}",
+        bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / ms:.4f}",
         x_library=f"{ms / library_ms:.3f}",
         device_launches_per_call=len(plan),
-        bytes=bytes_moved, compare_exchanges=compare_exchanges,
+        bytes=cost.nbytes, compare_exchanges=cost.operations,
         timed_by=timed_by, tries=tries, events_ms=f"{events['ms']:.5f}",
         events_plain_ms=f"{events['plain_ms']:.5f}",
         events_library_ms=f"{events['library_ms']:.5f}")
@@ -831,7 +831,7 @@ def _time_sort(dev, rows):
             "source": "salt_tpu_torch/csrc/bitonic_sort.cu",
             "replaces": "salt_tpu/ops/pallas_sort.py:46",
             "launches": None, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
@@ -861,19 +861,6 @@ def _conv_inputs(shape, seed):
     return x, w
 
 
-def conv_bound(shape, halo):
-    """(bound ms, "bytes" | "operations", flops, bytes) of one conv:
-    each input read once, the output written once; 2 * M * N * K
-    multiply-adds at the bf16 dense rate."""
-    b, c, hx, wx = shape
-    h, w = (hx - 2, wx - 2) if halo else (hx, wx)
-    flops = 2 * b * h * w * 64 * 9 * c
-    nbytes = 2 * (b * c * hx * wx + 64 * 9 * c + b * 64 * h * w)
-    t_ops, t_bytes = flops / BF16_DENSE_FLOPS, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
-
-
 def phase_conv_kernel(dev):
     """The conv kernel against its plain version (fp32 ``F.conv2d`` with
     TF32 off, rounded to bf16) on the card, bf16, at every shape of
@@ -889,6 +876,7 @@ def phase_conv_kernel(dev):
     import torch
     import torch.nn.functional as F
     from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops import costs
     from salt_tpu_torch.ops.conv_pair import conv3x3_pair
     max_err = 0.0
     for i, (name, shape, halo) in enumerate(CONV_SHAPES):
@@ -928,7 +916,11 @@ def phase_conv_kernel(dev):
         def library():
             return F.conv2d(x, w, padding=0 if halo else 1)
 
-        bound_ms, bound_by, flops, nbytes = conv_bound(shape, halo)
+        with torch.no_grad(), costs.recording() as launched:
+            kernel()
+        (cost,) = launched
+        bound_ms, bound_by = costs.launches_bound_ms(launched)
+        flops, nbytes = cost.operations, cost.nbytes
         for tries in range(1, MEASURE_TRIES + 1):
             with torch.no_grad():
                 ms = device_ms(kernel, match="conv3x3_pair_kernel", iters=20)
@@ -1017,14 +1009,6 @@ def _ulp_check(name, got, want, terms, k):
     return float(err.max())
 
 
-def gemm_bound(nbytes, ops, ops_rate=BF16_DENSE_FLOPS):
-    """(bound ms, "bytes" | "operations") of work that moves ``nbytes``
-    and does ``ops`` operations at ``ops_rate``."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def _timed(kernel, match, plain, library):
     """ms, plain_ms, library_ms (None without a library call) from the
     profiler; CUDA events where the profiler records no device time."""
@@ -1065,6 +1049,7 @@ def phase_probe_kernels(dev, card):
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from salt_tpu_torch.ops import costs
     from salt_tpu_torch.ops.conv128_kernel import make_conv128_kernel
     from salt_tpu_torch.ops.conv64p_kernel import (make_conv64p_kernel,
                                                    make_conv64p_v2)
@@ -1157,8 +1142,8 @@ def phase_probe_kernels(dev, card):
     records = {}
 
     def record(key, variant, kernel, match, plain, library, nbytes, ops,
-               ops_rate=BF16_DENSE_FLOPS):
-        bound_ms, bound_by = gemm_bound(nbytes, ops, ops_rate)
+               ops_rate=costs.BF16_DENSE_FLOPS):
+        bound_ms, bound_by = costs.bound_ms(nbytes, ops, ops_rate)
         for tries in range(1, MEASURE_TRIES + 1):
             t = _timed(kernel, match, plain, library)
             if not under_bound(bound_ms, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -1191,10 +1176,10 @@ def phase_probe_kernels(dev, card):
     record("conv64p_v2_int8", "th32 +db INT8", lambda: v2q(xq, wq3),
            "conv_valid_kernel", lambda: conv64p_plain(xq, wq3, H, W), None,
            x.numel() + 768 * 128 + B * H * PO * 128 * 2, c64_ops,
-           INT8_DENSE_OPS)
+           costs.INT8_DENSE_OPS)
     # the int8 call's K-major weight copy (98 KB), outside its kernel time
     copy_ms = device_ms(lambda: kmajor_weights(wq3), iters=20)
-    copy_bound = 2 * wq3.numel() / HBM_BYTES_PER_S * 1e3
+    copy_bound = costs.bound_ms(2 * wq3.numel(), 0, 1.0)[0]
     check_bound("int8 weight copy", copy_bound, ms=copy_ms)
     log("probe_kernel", name="conv64p_v2_int8 weight copy",
         variant="kmajor_weights [768,128] -> [128,768] int8",
@@ -1952,6 +1937,476 @@ def phase_losses(dev):
             value_err=float((v_card - v_cpu).abs()),
             grad_max_abs_err=float((g_card - g_cpu).abs().max()),
             grad_scale=g_scale)
+
+
+FP_IMAGES = 480                   # 6 folds of 400 train / 80 valid
+FP_TIMED_STEPS = 3
+
+
+def _fp_fold_data(bundle, n_folds):
+    from salt_tpu_torch.core.experiment import add_fold_suffix
+    from salt_tpu_torch.data.kfold import KFoldBySortedValue
+    cv = KFoldBySortedValue(n_splits=n_folds)
+    fold_train, fold_valid, names = [], [], []
+    for i, (tr, va) in enumerate(cv.split(bundle.meta["z"].values)):
+        t, v = bundle.take(tr), bundle.take(va)
+        fold_train.append((t.images, t.masks, None))
+        fold_valid.append((v.images, v.masks, None))
+        names.append(add_fold_suffix("network", i))
+    return fold_train, fold_valid, names
+
+
+def _fp_aligned(dev, card, dtype, batch, tol):
+    """One aligned fold-parallel step (every fold from the same init,
+    each its own batch of ``batch``, the sequential step's draws) against
+    the sequential ``train_step`` of each fold on its batch from that
+    init with those draws: each fold's loss (relative), every Adam step
+    over lr and the BN statistics and, where ``tol["grad"]`` is set,
+    every gradient leaf of each fold (the step's vmapped half,
+    ``FoldParallelRunner.grads``, on the step's network inputs) within
+    that share of the leaf's max. ``dtype`` "float64" is the fp32
+    configuration with every network cast to float64 after its optimizer
+    is built, as ``phase_train_step`` casts it. Returns the sort's
+    launches (one a step, two with the gradients)."""
+    import torch
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.parallel.fold_parallel import FoldParallelRunner
+    cfg = default_config()
+    cfg.training.dtype = "float32" if dtype == "float64" else dtype
+    k, seed, lr = cfg.execution.n_cv_splits, cfg.execution.seed, \
+        cfg.training.lr
+
+    def network(model):
+        if dtype == "float64":
+            model.to(torch.float64)
+            model.compute_dtype = torch.float64
+        return model
+
+    fp = FoldParallelRunner(cfg, k, dev)
+    runner = fp.runner
+    states = fp.stack([network(runner.init_state(seed).model)
+                       for _ in range(k)])
+    images = seeded_images(k * batch, seed=41).reshape(k, batch, 101, 101)
+    di, dm = fp.shard_fold_batch(images, (images > 140).astype("uint8"))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    draws = fp.draw(gen, batch, aligned=True)
+    sk.launches = 0
+    grads = None
+    if tol["grad"] is not None:
+        x, y = runner._train_inputs(di.reshape(k * batch, 101, 101),
+                                    dm.reshape(k * batch, 101, 101),
+                                    draws[0])
+        _, flat, _ = fp.grads(states, x.reshape(k, batch, *x.shape[1:]),
+                              y.reshape(k, batch, *y.shape[1:]), draws[1])
+        grads = [states._views(flat, states.param_layout, i)
+                 for i in range(k)]
+    grad_launches = sk.launches
+    loss = fp.train_step(states, di, dm, draws, [True] * k).cpu()
+    torch.cuda.synchronize()
+    sort_launches = sk.launches - grad_launches
+    if sort_launches != 1:
+        raise AssertionError(f"fold-parallel step: {sort_launches} sort "
+                             "launches, not 1")
+    worst = dict(loss=0.0, grad=0.0, step=0.0, bn=0.0)
+    for i in range(k):
+        state = runner.init_state(seed)
+        network(state.model)
+        gen.manual_seed(7)
+        seq_loss = float(runner.train_step(state, di[i], dm[i], gen))
+        fold = states.fold(i).model
+        worst["loss"] = max(worst["loss"], abs(float(loss[i]) - seq_loss)
+                            / max(abs(seq_loss), 1e-30))
+        for (name, p), q in zip(state.model.named_parameters(),
+                                fold.parameters()):
+            worst["step"] = max(worst["step"], float(
+                (p.detach().double() - q.detach().double()).abs().max())
+                / lr)
+            if grads is not None:
+                g = p.grad.double()
+                worst["grad"] = max(worst["grad"], float(
+                    (grads[i][name].double() - g).abs().max())
+                    / (float(g.abs().max()) + 1e-30))
+        for (name, b), c in zip(state.model.named_buffers(), fold.buffers()):
+            if b.is_floating_point():
+                worst["bn"] = max(worst["bn"], float(
+                    (b.double() - c.double()).abs().max()))
+        del state
+    log("fold_parallel", check="aligned step vs sequential", folds=k,
+        batch=batch, dtype=dtype, loss_rel_err=f"{worst['loss']:.3e}",
+        worst_grad_leaf_err_of_max=(f"{worst['grad']:.3e}" if grads
+                                    is not None else "not compared"),
+        step_max_diff_over_lr=f"{worst['step']:.3e}",
+        bn_stats_max_err=f"{worst['bn']:.3e}", losses=[
+            round(float(v), 5) for v in loss], card=repr(card))
+    if any(tol[key] is not None and worst[key] > tol[key] for key in worst):
+        raise AssertionError(f"aligned fold-parallel {dtype} vs sequential:"
+                             f" {worst} over {tol}")
+    return sort_launches + grad_launches
+
+
+def _fp_timing(dev, card):
+    """One fold-parallel step of the six folds (bf16, batch 24 each)
+    beside six sequential steps, after two warm-up calls each. Over
+    three synchronized windows of FP_TIMED_STEPS calls: the wall ms and
+    the CUDA events' ms (the card's timeline from the window's first
+    kernel to its last, idle gaps included, so the wall caps it), both
+    of the window with the least wall time. Then one profiler session of
+    FP_TIMED_STEPS calls, with its own wall and events ms: the time in
+    which any recorded device event ran (``tools/profiling.busy_us``, the
+    union of their intervals) a call and its share of that session's
+    events ms, the recorded durations summed (above the union where
+    kernels of more than one stream overlap), the streams and events
+    recorded, and the top kernels by their summed durations. Nothing is
+    extrapolated from the events the profiler kept (at some 5,000
+    launches a call it may lose some), so the busy time is a lower
+    estimate. Returns the sort's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.parallel.fold_parallel import FoldParallelRunner
+    from salt_tpu_torch.tools.profiling import busy_us, device_events
+    cfg = default_config()
+    k = cfg.execution.n_cv_splits
+    fp = FoldParallelRunner(cfg, k, dev)
+    states = fp.init_states(cfg.execution.seed)
+    images = seeded_images(k * TRAIN_BATCH, seed=43).reshape(
+        k, TRAIN_BATCH, 101, 101)
+    di, dm = fp.shard_fold_batch(images, (images > 140).astype("uint8"))
+    gen = torch.Generator(device=dev)
+    seq = [fp.runner.init_state(cfg.execution.seed + i) for i in range(k)]
+
+    def parallel_step(i):
+        gen.manual_seed(i)
+        return fp.train_step(states, di, dm, fp.draw(gen, TRAIN_BATCH),
+                             [True] * k)
+
+    def sequential_steps(i):
+        for f in range(k):
+            gen.manual_seed(i * k + f)
+            fp.runner.train_step(seq[f], di[f], dm[f], gen)
+
+    sk.launches = 0
+    out = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for name, fn in (("parallel", parallel_step),
+                     ("sequential6", sequential_steps)):
+        for i in range(2):
+            fn(i)
+        windows = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(FP_TIMED_STEPS):
+                fn(i)
+            end.record()
+            torch.cuda.synchronize()
+            windows.append(((time.perf_counter() - t0) * 1e3
+                            / FP_TIMED_STEPS,
+                            start.elapsed_time(end) / FP_TIMED_STEPS))
+        wall_ms, events_ms = min(windows)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(FP_TIMED_STEPS):
+                fn(i)
+            end.record()
+            torch.cuda.synchronize()
+            profiled_wall_ms = ((time.perf_counter() - t0) * 1e3
+                                / FP_TIMED_STEPS)
+            profiled_events_ms = start.elapsed_time(end) / FP_TIMED_STEPS
+        kept = device_events(prof.events())
+        by_name = {}
+        for e in kept:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3
+                               / FP_TIMED_STEPS)
+        busy_ms = busy_us(kept) / 1e3 / FP_TIMED_STEPS
+        summed_ms = sum(by_name.values())
+        streams = len({getattr(e, "device_resource_id", None)
+                       for e in kept})
+        sort_ms = sum(v for n, v in by_name.items()
+                      if sk.KERNEL_PREFIX in n)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out[name] = dict(wall_ms=wall_ms, events_ms=events_ms)
+        log("fold_parallel", timing=name, folds=k, batch=TRAIN_BATCH,
+            dtype=cfg.training.dtype, wall_ms=f"{wall_ms:.3f}",
+            events_ms=f"{events_ms:.3f}",
+            profiled_wall_ms=f"{profiled_wall_ms:.3f}",
+            profiled_events_ms=f"{profiled_events_ms:.3f}",
+            busy_ms=f"{busy_ms:.3f}",
+            busy_share=f"{busy_ms / profiled_events_ms:.3f}",
+            durations_summed_ms=f"{summed_ms:.3f}", streams=streams,
+            events_recorded_per_step=len(kept) / FP_TIMED_STEPS,
+            sort_ms_recorded=f"{sort_ms:.4f}",
+            top_recorded=[(n[:60], round(v, 3)) for n, v in top],
+            card=repr(card))
+    launches = sk.launches
+    if launches != (2 + 4 * FP_TIMED_STEPS) * (1 + k):
+        raise AssertionError(f"timing: {launches} sort launches")
+    par, seq6 = out["parallel"], out["sequential6"]
+    log("fold_parallel", timing="one fold-parallel step vs six sequential",
+        wall_ratio=f"{par['wall_ms'] / seq6['wall_ms']:.3f}",
+        events_ratio=f"{par['events_ms'] / seq6['events_ms']:.3f}",
+        card=repr(card))
+    return launches
+
+
+def phase_fold_parallel(dev, card):
+    """``parallel.fold_parallel``: the K = 6 folds of the flagship
+    (UNetResNet34, bf16, batch 24 each, conv kernel "on") trained as one
+    vmapped step, through the command a user runs: ``cli
+    train-evaluate-predict-cv --set parallel.fold_parallel=true`` on
+    FP_IMAGES synthetic images (6 folds of 400 / 80, 1 epoch, the CLI's
+    120 test images). Its fit: the sort kernel launched once per
+    fold-parallel step over K x 24 rows (not K times), the preprocess
+    kernel once and the conv kernel 14 times per validation batch; then
+    the CV loop's evaluation half from each fold's ``best.npz`` (each
+    fold's validation and the test set); each fold's epoch loss finite,
+    the folds' weights distinct, ``cv_scores.json`` and
+    ``submission.csv`` written, each ``best.npz`` restored by
+    ``SegmentationRunner`` and served. Then the aligned step against the
+    sequential step of each fold, at ``phase_train_step``'s tolerances:
+    float64 (batch 2 a fold) with the loss within 1e-6 relative, every
+    gradient leaf of every fold within 1e-6 of its max, every Adam step
+    within 1e-3 lr and BN statistics within 1e-9 (a gradient that mixed
+    folds' rows, or a wrong per-fold Adam, fails here: after one step
+    every element moves by about lr, so the step check alone holds only
+    the sign); fp32 (TF32 off, batch 8 a fold) with the loss within 1e-4
+    relative, every Adam step within 2.001 lr and BN statistics 1e-4;
+    bf16 with the loss within 3e-3 relative (under the 1.9% spread of
+    the folds' own losses; bf16 rounds each conv's output to 8 bits, and
+    the grouped conv of the mapped step sums in another order), steps
+    within 2.001 lr and BN statistics within 2e-2; and the time of one
+    fold-parallel step beside six sequential steps. Returns the kernels'
+    launches."""
+    import numpy as np
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.core.experiment import load_flat_npz
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.ops import costs
+    from salt_tpu_torch.train.steps import SegmentationRunner
+
+    cfg = default_config()                    # UNetResNet34, bf16, 6 folds
+    cfg.model.pallas_conv = "on"
+    k = cfg.execution.n_cv_splits
+    bundle = synthetic_bundle(FP_IMAGES, seed=cfg.execution.seed)
+    fold_train, fold_valid, names = _fp_fold_data(bundle, k)
+    steps = min(len(t[0]) for t in fold_train) // TRAIN_BATCH
+    bs = cfg.training.batch_size_inference
+    val_batches = sum(math.ceil(len(v[0]) / bs) for v in fold_valid)
+    test_batches = k * math.ceil(max(FP_IMAGES // 4, 8) / bs)
+    forwards = 2 * val_batches + test_batches  # fit + evaluation half
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp")
+        _fs_reset()
+        with costs.recording() as launched:
+            t0 = time.perf_counter()
+            rc = cli_main(["train-evaluate-predict-cv", "--synthetic",
+                           str(FP_IMAGES), "--epochs", "1",
+                           "--set", f"paths.experiment_dir={exp}",
+                           "--set", "parallel.fold_parallel=true",
+                           "--set", "model.pallas_conv=on"])
+            wall = time.perf_counter() - t0
+        counts = _fs_counts()
+        sort_rows = [c.shape[0] for c in launched
+                     if c.kernel == "bitonic_sort"]
+        want = dict(preprocess=forwards, sort=steps,
+                    conv=CONV_KERNEL_PER_FORWARD * forwards)
+        if (rc != 0 or counts != want
+                or sort_rows != [k * TRAIN_BATCH] * steps):
+            raise AssertionError(f"fold-parallel CV: rc {rc}, launches "
+                                 f"{counts} (sort rows {sort_rows}), "
+                                 f"expected {want} and {steps} sorts of "
+                                 f"{k * TRAIN_BATCH} rows")
+        epochs = []
+        for name in names:
+            with open(os.path.join(exp, f"channels_{name}.jsonl")) as f:
+                epochs.append([json.loads(line) for line in f][-1])
+        losses = [e["train_loss"] for e in epochs]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"fold losses {losses}")
+        best = [load_flat_npz(os.path.join(exp, "checkpoints", name,
+                                           "best.npz")) for name in names]
+        key = sorted(best[0])[0]
+        if any(np.array_equal(best[0][key], b[key]) for b in best[1:]):
+            raise AssertionError("two folds' weights are equal")
+        with open(os.path.join(exp, "cv_scores.json")) as f:
+            scores = json.load(f)
+        with open(os.path.join(exp, "submission.csv")) as f:
+            rows = len(f.read().splitlines())
+        if len(scores["fold_iout"]) != k or rows != max(FP_IMAGES // 4,
+                                                        8) + 1:
+            raise AssertionError(f"cv_scores {scores}, {rows} CSV lines")
+        runner = SegmentationRunner(cfg, dev)
+        for i, b in enumerate(best):
+            probs = runner.predict_dataset(runner.restore(b),
+                                           fold_valid[i][0][:24])
+            if probs.shape != (24, 2, 101, 101) or not np.isfinite(
+                    probs).all():
+                raise AssertionError(f"{names[i]} best.npz served "
+                                     f"{probs.shape}")
+    log("fold_parallel", command="train-evaluate-predict-cv --set "
+        "parallel.fold_parallel=true", folds=k, images=FP_IMAGES,
+        batch=TRAIN_BATCH, dtype=cfg.training.dtype, steps=steps,
+        wall_s=f"{wall:.3f}", train_loss=[round(v, 5) for v in losses],
+        val_iout=[round(e["iout"], 5) for e in epochs],
+        fold_iout=[round(v, 5) for v in scores["fold_iout"]],
+        sort_rows_per_launch=k * TRAIN_BATCH, **counts, card=repr(card))
+    counts["sort"] += _fp_aligned(dev, card, "float64", 2,
+                                  dict(loss=1e-6, grad=1e-6, step=1e-3,
+                                       bn=1e-9))
+    counts["sort"] += _fp_aligned(dev, card, "float32", 8,
+                                  dict(loss=1e-4, grad=None, step=2.001,
+                                       bn=1e-4))
+    counts["sort"] += _fp_aligned(dev, card, "bfloat16", TRAIN_BATCH,
+                                  dict(loss=3e-3, grad=None, step=2.001,
+                                       bn=2e-2))
+    counts["sort"] += _fp_timing(dev, card)
+    return counts
+
+
+def cli_main(argv):
+    """``cli.main(argv)``, the device synchronized after it."""
+    import torch
+    from salt_tpu_torch import cli
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc
+
+
+def phase_tooling(dev, card):
+    """The step tooling through the command line: ``cli train
+    --trace-steps --profile DIR`` of the flagship at batch 24 (96
+    synthetic images, 1 epoch): the five phases in
+    ``channels_trace.jsonl``, and a Chrome trace in which
+    ``tools/profiling.read_trace`` finds the sort kernel; then ``cli
+    cost-analysis`` of the flagship (bf16, batch 24, hflip TTA, conv
+    kernel "on"): the train, predict and TTA steps, each with FLOPs and a
+    temp high-water mark above 0. Returns the kernels' launches."""
+    from salt_tpu_torch import cli
+    from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.tools.profiling import read_trace
+    from salt_tpu_torch.train.trace import PHASES
+    total = dict(preprocess=0, sort=0, conv=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        exp, prof = os.path.join(tmp, "exp"), os.path.join(tmp, "prof")
+        _fs_reset()
+        rc = cli.main(["train", "--synthetic", "96", "--epochs", "1",
+                       "--trace-steps", "--profile", prof,
+                       "--set", f"paths.experiment_dir={exp}"])
+        counts = _fs_counts()
+        if rc != 0:
+            raise AssertionError(f"train --trace-steps --profile: rc {rc}")
+        with open(os.path.join(exp, "channels_trace.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        phases = {line["phase"]: line["ms"] for line in lines}
+        if (set(phases) != set(PHASES) or len(lines) != len(PHASES)
+                or any(line["batch_size"] != TRAIN_BATCH for line in lines)
+                or min(phases[p] for p in PHASES if p != "bwd_opt") <= 0):
+            raise AssertionError(f"channels_trace.jsonl: {lines}")
+        sorts = read_trace(os.path.join(prof, "trace.json"), sk.KERNEL_PREFIX)
+        if not sorts:
+            raise AssertionError("the --profile trace holds no sort kernel")
+        log("tooling", command="train --trace-steps --profile", batch=
+            TRAIN_BATCH, **{f"{p}_ms": phases[p] for p in PHASES},
+            trace_sort_kernels=len(sorts),
+            trace_sort_launches=sum(v["launches"] for v in sorts.values()),
+            trace_sort_us=f"{sum(v['us'] for v in sorts.values()):.1f}",
+            **counts, card=repr(card))
+        for key in total:
+            total[key] += counts[key]
+
+        exp2 = os.path.join(tmp, "cost")
+        _fs_reset()
+        rc = cli.main(["cost-analysis",
+                       "--set", f"paths.experiment_dir={exp2}",
+                       "--set", "postpro.use_tta=true",
+                       "--set", "model.pallas_conv=on"])
+        counts = _fs_counts()
+        with open(os.path.join(exp2, "cost_analysis.json")) as f:
+            analyses = json.load(f)
+        steps = ("train_step", "predict_step", "predict_tta_step")
+        if rc != 0 or set(analyses) != set(steps) or any(
+                not analyses[s]["temp_bytes"] or analyses[s]["flops"] <= 0
+                for s in steps):
+            raise AssertionError(f"cost-analysis: rc {rc}, {analyses}")
+        for s in steps:
+            a = analyses[s]
+            log("tooling", command="cost-analysis", step=s,
+                gflops=a["gflops"],
+                gb_moved=f"{a['bytes_accessed'] / 1e9:.3f}",
+                flop_per_byte=a["arithmetic_intensity"],
+                ideal_ms_flop=a["ideal_ms_flop_bound"],
+                ideal_ms_bytes=a["ideal_ms_bw_bound"], bound=a["bound"],
+                temp_mb=f"{a['temp_bytes'] / 1e6:.1f}",
+                hand_kernels={n: v["launches"]
+                              for n, v in a["hand_kernels"].items()},
+                card=repr(card))
+        for key in total:
+            total[key] += counts[key]
+    return total
+
+
+def phase_data_parallel(dev, card):
+    """``parallel/mesh.py`` on the card: a process group of one rank on
+    NCCL (tcp://localhost), one data-parallel train step of the flagship
+    (fp32, TF32 off, batch 24: BatchNorm's sums and the gradients
+    all-reduced through NCCL) against the plain step from the same
+    weights and draws, at ``phase_train_step``'s fp32 tolerances (loss
+    1e-4, every Adam step within 2.001 lr, BN statistics 1e-4). Returns
+    the sort's launches."""
+    import torch
+    import torch.distributed as dist
+    from salt_tpu_torch.core.config import default_config
+    from salt_tpu_torch.ops import sort_kernel as sk
+    from salt_tpu_torch.parallel.mesh import (data_parallel_train_step,
+                                              init_process_group)
+    from salt_tpu_torch.train.steps import SegmentationRunner
+    mesh = init_process_group(0, 1, device="cuda")
+    try:
+        if mesh.backend != "nccl" or mesh.size != 1:
+            raise AssertionError(f"process group {mesh}")
+        cfg = default_config()
+        cfg.training.dtype = "float32"
+        lr = cfg.training.lr
+        runner = SegmentationRunner(cfg, dev)
+        images = seeded_images(TRAIN_BATCH, seed=47)
+        imgs, masks = runner.device_batch(images,
+                                          (images > 140).astype("uint8"))
+        gen = torch.Generator(device=dev)
+        plain, dp = runner.init_state(0), runner.init_state(0)
+        gen.manual_seed(5)
+        loss_plain = float(runner.train_step(plain, imgs, masks, gen))
+        gen.manual_seed(5)
+        sk.launches = 0
+        loss_dp = float(data_parallel_train_step(runner, dp, imgs, masks,
+                                                 gen, mesh))
+        torch.cuda.synchronize()
+        launches = sk.launches
+        step = max(float((a.detach().double() - b.detach().double())
+                         .abs().max()) for a, b in
+                   zip(plain.model.parameters(), dp.model.parameters())) / lr
+        bn = max(float((a.double() - b.double()).abs().max()) for a, b in
+                 zip(plain.model.buffers(), dp.model.buffers())
+                 if a.is_floating_point())
+    finally:
+        dist.destroy_process_group()
+    log("data_parallel", backend="nccl", world_size=1, batch=TRAIN_BATCH,
+        dtype="float32", loss_plain=loss_plain, loss_dp=loss_dp,
+        loss_err=abs(loss_plain - loss_dp),
+        step_max_diff_over_lr=f"{step:.3e}", bn_stats_max_err=f"{bn:.3e}",
+        sort_launches=launches, card=repr(card))
+    if (abs(loss_plain - loss_dp) > 1e-4 or step > 2.001 or bn > 1e-4
+            or launches != 1):
+        raise AssertionError(f"data-parallel step vs plain: loss "
+                             f"{loss_plain} / {loss_dp}, step {step} lr, BN "
+                             f"{bn}, {launches} sort launches")
+    return launches
 
 
 def phase_bench(card):
@@ -2871,27 +3326,6 @@ def _int8_pair(v):
     return (v, v) if isinstance(v, int) else tuple(int(i) for i in v)
 
 
-def _int8_bound(xs, ws, stride, padding, groups):
-    """(bound ms, "bytes" | "operations", ops, bytes) of one int8 conv:
-    2 M O K int8 operations at the dense int8 rate; the int8 input and
-    weight read once, the scales, the bf16 output written once."""
-    b, c, h, w = xs
-    o, cg, kh, kw = ws
-    (sh, sw), (ph, pw) = stride, padding
-    oh, ow = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
-    ops = 2 * b * oh * ow * o * kh * kw * cg
-    nbytes = b * c * h * w + o * kh * kw * cg + 4 * (b + o) + 2 * b * o * oh * ow
-    t_ops, t_bytes = ops / INT8_DENSE_OPS, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", ops, nbytes)
-
-
-def _quant_bound(rows, length, itemsize):
-    """Bound ms of quantizing [rows, length] values of ``itemsize`` bytes:
-    each read once, each int8 written once, the scales."""
-    return (rows * length * (itemsize + 1) + 4 * rows) / HBM_BYTES_PER_S * 1e3
-
-
 def graph_ms(fn, calls=INT8_GRAPH_CALLS, replays=INT8_GRAPH_REPLAYS):
     """Device ms a call of ``fn``: ``calls`` back-to-back calls captured
     in one CUDA graph, replayed ``replays`` times under CUDA events, the
@@ -2949,6 +3383,7 @@ def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
     a dict."""
     import torch
     import torch.nn.functional as F
+    from salt_tpu_torch.ops import costs
     from salt_tpu_torch.ops import int8_conv as ic
 
     gen = torch.Generator().manual_seed(seed)
@@ -2962,8 +3397,9 @@ def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
     rows_x = x.permute(0, 2, 3, 1).reshape(b, -1)
     rows_w = wt.permute(0, 2, 3, 1).reshape(o, -1).contiguous()
     with torch.no_grad():
-        qx, sx = ic.quantize_rows(rows_x)
-        qw, sw = ic.quantize_rows(rows_w)
+        with costs.recording() as quantized:
+            qx, sx = ic.quantize_rows(rows_x)
+            qw, sw = ic.quantize_rows(rows_w)
         for (q, s), rows in (((qx, sx), rows_x), ((qw, sw), rows_w)):
             pq, ps = ic.quantize_rows_plain(rows)
             if not (torch.equal(q, pq) and torch.equal(s, ps)):
@@ -2980,7 +3416,9 @@ def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
         def mma():
             return ic.int8_conv2d(*args, path="mma")
 
-        got = conv().float()
+        with costs.recording() as launched:
+            got = conv().float()
+        (cost,) = launched
         want = ic.int8_conv2d_plain(*args).float()
         got_mma = mma().float()
         torch.cuda.synchronize()
@@ -3007,10 +3445,9 @@ def _int8_check(dev, xs, ws, stride, padding, groups, seed, plain):
         out["cudnn_bf16_ms"] = time_ms(
             lambda: F.conv2d(x, wt, None, stride, padding, 1, groups),
             iters=20, warmup=3)
-        out["bound_ms"], out["bound_by"], out["ops"], out["bytes"] = \
-            _int8_bound(xs, ws, stride, padding, groups)
-        out["quant_bound_ms"] = (_quant_bound(b, c * h * w, 2)
-                                 + _quant_bound(o, cg * kh * kw, 2))
+        out["bound_ms"], out["bound_by"] = costs.launches_bound_ms(launched)
+        out["ops"], out["bytes"] = cost.operations, cost.nbytes
+        out["quant_bound_ms"], _ = costs.launches_bound_ms(quantized)
         check_bound(f"int8 conv {xs} {ws}", out["bound_ms"], ms=out["ms"],
                     call_ms=out["call_ms"], mma_ms=out["mma_ms"],
                     mma_call_ms=out["mma_call_ms"])
@@ -3157,6 +3594,7 @@ def phase_int8(dev, card):
     24 beside bf16. Returns the kernel records of the two conv kernels
     and the quantizer (their times summed over one forward at batch 64,
     each site as often as the forward calls it) and the launches."""
+    from salt_tpu_torch.ops import costs
     sites = _int8_sites(dev)
     if len(sites) != INT8_CONV_PER_FORWARD:
         raise AssertionError(f"int8 route: {len(sites)} sites, expected "
@@ -3175,8 +3613,8 @@ def phase_int8(dev, card):
             xb = (2 * batch,) + xs[1:]
             r = _int8_check(dev, xb, ws, stride, padding, groups, seed=i,
                             plain=batch == BENCH_BATCH)
-            r["ops_ms"] = r["ops"] / INT8_DENSE_OPS * 1e3
-            r["bytes_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+            r["ops_ms"] = r["ops"] / costs.INT8_DENSE_OPS * 1e3
+            r["bytes_ms"] = r["bytes"] / costs.HBM_BYTES_PER_S * 1e3
             r["sites"] = 1
             path = r["path"]
             max_err[path] = max(max_err[path], r["max_abs_err"])
@@ -3350,6 +3788,9 @@ def main():
     train_sort, train_preprocess = phase_train(dev, smi)
     phase_train_profile(dev, smi)
     cv_on, cv_off, cv_int8 = phase_cv(smi)
+    fold_parallel = phase_fold_parallel(dev, smi)
+    tooling = phase_tooling(dev, smi)
+    dp_sort = phase_data_parallel(dev, smi)
     meta = phase_metadata(smi)
     synthetic_preprocess = phase_serve_synthetic(dev, smi)
     salt_unet = phase_salt_unet(dev, smi)
@@ -3366,13 +3807,17 @@ def main():
                               + salt_unet["preprocess"]
                               + bench_counts["preprocess"]
                               + arch["preprocess"] + arch2["preprocess"]
-                              + full["preprocess"] + int8["preprocess"])
+                              + full["preprocess"] + int8["preprocess"]
+                              + fold_parallel["preprocess"]
+                              + tooling["preprocess"])
     sort["launches"] = (train_sort + cv_on["sort"] + meta["sort"]
                         + salt_unet["sort"] + bench_counts["sort"]
-                        + arch["sort"] + arch2["sort"] + full["sort"])
+                        + arch["sort"] + arch2["sort"] + full["sort"]
+                        + fold_parallel["sort"] + tooling["sort"] + dp_sort)
     conv["launches"] = (serve_conv + cv_on["conv"] + ab_launches
                         + arch["conv"] + arch2["conv"] + full["conv"]
-                        + int8["conv"])
+                        + int8["conv"] + fold_parallel["conv"]
+                        + tooling["conv"])
     int8_wgmma["launches"] = (int8["int8_wgmma"] + cv_int8["int8_wgmma"]
                               + bench_counts["int8_wgmma"])
     int8_conv["launches"] = (int8["int8_mma"] + cv_int8["int8_mma"]
@@ -3392,7 +3837,13 @@ def main():
         preprocess_arch=arch["preprocess"],
         preprocess_arch2=arch2["preprocess"],
         preprocess_full_solution=full["preprocess"],
-        preprocess_int8=int8["preprocess"], sort_train=train_sort,
+        preprocess_int8=int8["preprocess"],
+        preprocess_fold_parallel=fold_parallel["preprocess"],
+        preprocess_tooling=tooling["preprocess"], sort_train=train_sort,
+        sort_fold_parallel=fold_parallel["sort"],
+        sort_tooling=tooling["sort"], sort_data_parallel=dp_sort,
+        conv_fold_parallel=fold_parallel["conv"],
+        conv_tooling=tooling["conv"],
         sort_cv=cv_on["sort"], sort_metadata=meta["sort"],
         sort_salt_unet=salt_unet["sort"], sort_bench=bench_counts["sort"],
         sort_arch=arch["sort"], sort_arch2=arch2["sort"],

@@ -30,6 +30,9 @@ Usage:
         [--set section.field=v] [--device cuda|cpu]
     python -m salt_tpu_torch.cli serve --synthetic N \
         [--checkpoint EXP_DIR_OR_NPZ] [the other serve options]
+    python -m salt_tpu_torch.cli cost-analysis [the options of train]
+    python -m salt_tpu_torch.cli <train or CV command> --trace-steps \
+        [--profile DIR] [the options of train]
 
 ``prepare-metadata`` scans ``paths.train_images_dir`` (``images/``,
 ``masks/``), ``paths.test_images_dir`` (``images/``) and
@@ -55,8 +58,19 @@ with ``--set model.quant_bits=8`` write each fold's
 ``prepare-metadata``, ``ensemble``, ``verify-data``, ``data-stats`` and
 ``analyze`` touch no device. Every other command runs on the CUDA card
 by default and fails where there is none, unless ``--device cpu`` is
-given. ``cost-analysis``, ``--profile`` and ``--trace-steps`` raise
-``NotImplementedError`` (ROADMAP.md Queue A item 17).
+given.
+
+``cost-analysis`` runs the train, predict and (with ``postpro.use_tta``)
+TTA steps once each and writes their FLOPs, bytes, memory high-water
+mark and roofline to ``<experiment_dir>/cost_analysis.json``
+(``train/cost_analysis.py``). ``--trace-steps`` times the train step's
+phases first and appends them to ``channels_trace.jsonl``
+(``train/trace.py``); ``--profile DIR`` records the command under
+``torch.profiler`` (CUDA activity on the card) and writes a Chrome trace
+to ``DIR/trace.json`` (``tools/profiling.read_trace`` reads it). Both
+apply to the commands that train or predict (not ``serve`` or the host
+commands). ``--set parallel.fold_parallel=true`` makes the CV commands
+train all folds at once (``parallel/fold_parallel.py``).
 """
 from __future__ import annotations
 
@@ -75,8 +89,6 @@ COMMANDS = [
     "stacking-cv", "full-solution", "serve", "verify-data",
     "cost-analysis", "analyze", "ensemble", "data-stats",
     "augment-preview", "distill"]
-
-ITEM_17 = "not ported yet (ROADMAP.md Queue A item 17)"
 
 
 def _parse_overrides(items):
@@ -177,19 +189,18 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--preview-samples", type=int, default=6,
                         help="augment-preview: policy draws per image")
     parser.add_argument("--profile", default="", metavar="DIR",
-                        help=f"a profiler trace of the run: {ITEM_17}")
+                        help="record the run under torch.profiler and "
+                             "write a Chrome trace to DIR/trace.json")
     parser.add_argument("--trace-steps", action="store_true",
-                        help=f"per-phase train step times: {ITEM_17}")
+                        help="time the train step's phases (h2d, aug, "
+                             "fwd_loss, full, bwd_opt) on one batch first "
+                             "and append them to channels_trace.jsonl")
     return parser
 
 
 def main(argv=None):
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.command == "cost-analysis":
-        raise NotImplementedError(f"cost-analysis: {ITEM_17}")
-    if args.profile or args.trace_steps:
-        raise NotImplementedError(f"--profile / --trace-steps: {ITEM_17}")
 
     init_logger()
     overrides = _parse_overrides(args.set)
@@ -310,10 +321,11 @@ _HOST_COMMANDS = {"ensemble": _ensemble, "verify-data": _verify_data,
 def _run(cfg, args) -> int:
     from salt_tpu_torch.core.device import resolve_device
     from salt_tpu_torch.core.experiment import Experiment
-    from salt_tpu_torch.pipeline import api
     device = resolve_device(args.device)
-    train_b, test_b = _bundles(cfg, args.synthetic, args.synthetic_difficulty)
     command = args.command
+    if command == "cost-analysis":
+        return _cost_analysis(cfg, device)
+    train_b, test_b = _bundles(cfg, args.synthetic, args.synthetic_difficulty)
     if command == "augment-preview":
         from salt_tpu_torch.pipeline.preview import augment_preview
         out = args.out or cfg.paths.experiment_dir + "/augment_preview.png"
@@ -325,6 +337,78 @@ def _run(cfg, args) -> int:
     experiment = Experiment(cfg.paths.experiment_dir,
                             overwrite=cfg.execution.overwrite,
                             clone_from=cfg.execution.clone_experiment_dir_from)
+    if args.trace_steps:
+        _trace_steps(cfg, experiment, train_b, device)
+    profiler = _start_profiler(args.profile, device)
+    try:
+        _command(cfg, args, experiment, train_b, test_b, device)
+    finally:
+        if profiler is not None:
+            _stop_profiler(profiler, args.profile)
+    return 0
+
+
+def _cost_analysis(cfg, device) -> int:
+    """What the step programs compute and move on ``device``
+    (``train/cost_analysis.py``), printed and written to
+    ``<experiment_dir>/cost_analysis.json``."""
+    import json
+    import os
+    from salt_tpu_torch.train.cost_analysis import analyze_runner, report
+    from salt_tpu_torch.train.steps import SegmentationRunner
+    analyses = analyze_runner(SegmentationRunner(cfg, device))
+    print(report(analyses))
+    os.makedirs(cfg.paths.experiment_dir, exist_ok=True)
+    out_path = os.path.join(cfg.paths.experiment_dir, "cost_analysis.json")
+    with open(out_path, "w") as f:
+        json.dump(analyses, f, indent=1)
+    print(f"saved to {out_path}")
+    return 0
+
+
+def _trace_steps(cfg, experiment, train_b, device) -> None:
+    """The train step's phase times on one batch of the train bundle
+    (tiled up where the bundle holds fewer images than a batch)."""
+    import numpy as np
+    from salt_tpu_torch.train.steps import SegmentationRunner
+    from salt_tpu_torch.train.trace import trace_steps
+    runner = SegmentationRunner(cfg, device)
+    bs = cfg.training.batch_size_train
+
+    def take(a):
+        return a[:bs] if len(a) >= bs else np.resize(a, (bs,) + a.shape[1:])
+    timings = trace_steps(
+        runner, take(train_b.images), take(train_b.masks),
+        take(train_b.depths) if runner.use_depth else None,
+        out_path=experiment.directory + "/channels_trace.jsonl")
+    print("trace-steps (ms/step):",
+          {k: round(v, 2) for k, v in timings.items()})
+
+
+def _start_profiler(directory: str, device):
+    if not directory:
+        return None
+    import torch
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, directory: str) -> None:
+    import os
+    profiler.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "trace.json")
+    profiler.export_chrome_trace(path)
+    print(f"profiler trace saved to {path}")
+
+
+def _command(cfg, args, experiment, train_b, test_b, device) -> None:
+    from salt_tpu_torch.pipeline import api
+    command = args.command
     if command == "train":
         api.train(cfg, experiment, train_b, device=device)
     elif command == "evaluate":
@@ -372,7 +456,6 @@ def _run(cfg, args) -> int:
                       device=device))
     else:
         _stacking_cv(cfg, args, experiment, train_b, test_b, device)
-    return 0
 
 
 def _stacking_cv(cfg, args, experiment, train_b, test_b, device) -> None:

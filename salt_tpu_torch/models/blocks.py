@@ -33,14 +33,25 @@ BatchNorm: eps 1e-5 (flax momentum 0.9 == torch momentum 0.1). In
 training it normalises with the batch's biased variance and, as flax
 does, moves ``running_var`` towards that biased variance too
 (:class:`BatchNorm2d`; ``nn.BatchNorm2d`` uses the unbiased one there).
+Inside :func:`functional_batch_norm` the training forward computes the
+statistics itself and hands the new running ones to a
+:class:`BatchStats` (under ``torch.func`` transforms, which cannot move
+a buffer in place), and over a process group it reduces them over the
+group's whole batch (data parallelism).
+
+Channel dropout draws from a ``torch.Generator``, or takes its uniform
+draws from a :class:`DropoutDraws` made in advance (``vmap`` cannot draw
+from a generator).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -154,6 +165,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if _FUNCTIONAL_BN is not None:
+            return self._functional_forward(x, *_FUNCTIONAL_BN)
         n = x.numel() // x.shape[1]
         old_var = self.running_var.detach().clone() if n == 1 else None
         y, _, invstd = torch.native_batch_norm(
@@ -169,6 +182,99 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.data.copy_(old_var.mul_(1 - self.momentum)
                                             .add_(var, alpha=self.momentum))
         return y
+
+    def _functional_forward(self, x: torch.Tensor,
+                            stats: Optional["BatchStats"],
+                            group) -> torch.Tensor:
+        """The training forward with the batch statistics computed here,
+        in fp32 at least (the fused kernel's accumulation): the mean,
+        then the biased variance about it; over ``group``'s whole batch
+        when a process group is given (each a sum all-reduced, equal
+        shards assumed). The new running statistics go to ``stats``, or,
+        without one, into the buffers in place."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = xf.numel() // xf.shape[1]
+        if group is not None:
+            n *= dist.get_world_size(group)
+
+        def channel_sum(t):
+            t = t.sum((0, 2, 3))
+            if group is None:
+                return t
+            from salt_tpu_torch.parallel.mesh import all_reduce_sum
+            return all_reduce_sum(t, group)
+
+        mean = channel_sum(xf) / n
+        centred = xf - mean[None, :, None, None]
+        var = channel_sum(centred.square()) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = centred * scale[None, :, None, None] + self.bias[None, :, None,
+                                                             None]
+        m = self.momentum
+        new_mean = self.running_mean * (1 - m) + mean.detach() * m
+        new_var = self.running_var * (1 - m) + var.detach() * m
+        if stats is not None:
+            stats.put(self, new_mean, new_var)
+        else:
+            with torch.no_grad():
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+        return y.to(x.dtype)
+
+
+class BatchStats:
+    """The new running statistics of one functional training forward,
+    by buffer name (``<module>.running_mean`` / ``.running_var``);
+    ``names`` maps each BatchNorm module's ``id`` to its name in the
+    model (``named_modules()``)."""
+
+    def __init__(self, names: Dict[int, str]):
+        self._names = names
+        self.values: Dict[str, torch.Tensor] = {}
+
+    def put(self, module: "BatchNorm2d", mean: torch.Tensor,
+            var: torch.Tensor) -> None:
+        prefix = self._names[id(module)]
+        self.values[f"{prefix}.running_mean"] = mean
+        self.values[f"{prefix}.running_var"] = var
+
+
+#: (stats, process group) while :func:`functional_batch_norm` is active
+_FUNCTIONAL_BN = None
+
+
+@contextlib.contextmanager
+def functional_batch_norm(stats: Optional[BatchStats] = None, group=None):
+    """Within: every :class:`BatchNorm2d` in training computes its batch
+    statistics itself (over ``group``'s whole batch when given) and puts
+    the new running ones into ``stats`` (in place when None)."""
+    global _FUNCTIONAL_BN
+    previous = _FUNCTIONAL_BN
+    _FUNCTIONAL_BN = (stats, group)
+    try:
+        yield stats
+    finally:
+        _FUNCTIONAL_BN = previous
+
+
+class DropoutDraws:
+    """The uniform draws of a forward's channel dropout sites, made in
+    advance, in the order the forward reaches the sites; passed where a
+    forward takes its ``generator``. Without draws it records each
+    site's [B, C] and leaves the features as they are (in either mode),
+    which tells the caller what to draw."""
+
+    def __init__(self, draws: Optional[Sequence[torch.Tensor]] = None):
+        self.draws = None if draws is None else list(draws)
+        self.shapes: List[Tuple[int, int]] = []
+
+    def take(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The next site's draws [B, C, 1, 1] for ``x`` (None when
+        recording)."""
+        self.shapes.append(tuple(x.shape[:2]))
+        if self.draws is None:
+            return None
+        return self.draws[len(self.shapes) - 1]
 
 
 def batch_norm(features: int) -> BatchNorm2d:
@@ -478,10 +584,18 @@ class Fp32HeadNet(nn.Module):
                          generator: Optional[torch.Generator]) -> torch.Tensor:
         """Whole channels zeroed with probability ``dropout_2d`` in train
         mode, the rest scaled by 1 / keep; the mask drawn from
-        ``generator``."""
-        if not (self.dropout_2d > 0 and self.training):
+        ``generator``, or taken from a :class:`DropoutDraws` (in either
+        mode)."""
+        if not self.dropout_2d > 0:
             return x
+        if isinstance(generator, DropoutDraws):
+            u = generator.take(x)
+            if u is None:
+                return x
+        elif not self.training:
+            return x
+        else:
+            u = torch.rand((*x.shape[:2], 1, 1), generator=generator,
+                           device=x.device)
         keep = 1.0 - self.dropout_2d
-        mask = torch.rand((*x.shape[:2], 1, 1), generator=generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, 0.0)
+        return torch.where(u < keep, x / keep, 0.0)

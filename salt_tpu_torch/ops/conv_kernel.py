@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from salt_tpu_torch.ops import build
+from salt_tpu_torch.ops import build, costs
 from salt_tpu_torch.ops.conv_pair import FEATURES, conv3x3_pair, pack_weight
 
 #: kernel launches since the last reset (set it to 0 to reset)
@@ -88,4 +88,8 @@ def conv3x3_pair_kernel(x: torch.Tensor, w: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"conv kernel launch failed: cudaError {rc}")
     launches += 1
+    costs.record("conv3x3_pair", 2 * b * h * wd * FEATURES * 9 * c,
+                 2 * (b * c * hx * wx + FEATURES * 9 * c
+                      + b * FEATURES * h * wd), costs.BF16_DENSE_FLOPS,
+                 x.shape)
     return out

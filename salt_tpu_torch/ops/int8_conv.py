@@ -63,7 +63,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from salt_tpu_torch.ops import build
+from salt_tpu_torch.ops import build, costs
 
 #: the clip bound and the bucket edge of AQT's 8-bit ``preserve_zero``
 QMAX = 127.0
@@ -151,6 +151,8 @@ def quantize_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if rc != 0:
         raise RuntimeError(f"quantize kernel launch failed: cudaError {rc}")
     quantize_launches += 1
+    costs.record("int8_quant", r * n, r * n * (rows.element_size() + 1)
+                 + 4 * r, costs.FP32_FLOPS, rows.shape)
     return q, scale
 
 
@@ -325,6 +327,11 @@ def int8_conv2d(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
         raise RuntimeError(f"int8 conv kernel ({route}) launch failed: "
                            f"cudaError {rc}")
     conv_launches += 1
+    costs.record("int8_conv_" + route,
+                 2 * b * out_h * out_w * o * kh * kw * (c // groups),
+                 b * c * h * w + wq.numel() + 4 * (b + o)
+                 + out.numel() * out.element_size(), costs.INT8_DENSE_OPS,
+                 xq.shape)
     if route == "wgmma":
         wgmma_launches += 1
     else:

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from salt_tpu_torch.ops import build
+from salt_tpu_torch.ops import build, costs
 from salt_tpu_torch.ops.preprocess import preprocess_inference
 
 RAW = 101
@@ -74,4 +74,7 @@ def preprocess_inference_kernel(images_u8: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"preprocess kernel launch failed: cudaError {rc}")
     launches += 1
+    costs.record("preprocess", b * NET * NET * 6,
+                 b * RAW * RAW + out.numel() * out.element_size(),
+                 costs.FP32_FLOPS, images_u8.shape)
     return out

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from salt_tpu_torch.losses.lovasz import lovasz_grad, weigh_errors_with_size
-from salt_tpu_torch.ops import build
+from salt_tpu_torch.ops import build, costs
 from salt_tpu_torch.ops.bitonic import (DST_OUTPUT, DST_SCRATCH, OP_CHUNK,
                                         OP_STRIDED, SRC_INPUT, SRC_SCRATCH,
                                         Launch, bitonic_sort_desc)
@@ -211,6 +211,9 @@ def launch_plan(keys: torch.Tensor, payload: torch.Tensor, chunk: int
         raise RuntimeError(f"sort kernel launch failed: cudaError {rc}")
     launches += 1
     device_launches += n_launches
+    log_p = p.bit_length() - 1
+    costs.record("bitonic_sort", log_p * (log_p + 1) // 2 * (b * p // 2),
+                 b * p * 16, costs.FP32_FLOPS, keys.shape)
     return keys_out, payload_out
 
 
@@ -220,10 +223,16 @@ class SortDescWithLabels(torch.autograd.Function):
     so one sort gives both the sorted labels and the permutation; the
     gradient flows through the errors only and is the scatter of the
     incoming gradient back through the permutation (``_sort_bwd``,
-    ``pallas_sort.py:156-163``: plain code there too, no kernel)."""
+    ``pallas_sort.py:156-163``: plain code there too, no kernel).
+
+    Returns (sorted errors, sorted labels, permutation); the last two
+    carry no gradient. ``forward`` / ``setup_context`` is the form
+    ``torch.func`` transforms take, and :meth:`vmap` folds the mapped
+    axis into the rows: [K, B, P] sorts as [K * B, P], one call of
+    :func:`sort_desc` (the sort is per row, so this is exact)."""
 
     @staticmethod
-    def forward(ctx, errors: torch.Tensor, labels: torch.Tensor):
+    def forward(errors: torch.Tensor, labels: torch.Tensor):
         b, p = errors.shape
         iota = torch.arange(p, dtype=torch.int32, device=errors.device)
         packed = (labels.to(torch.int32) << _LABEL_SHIFT) | iota
@@ -231,15 +240,31 @@ class SortDescWithLabels(torch.autograd.Function):
             errors.to(torch.float32).contiguous(), packed.contiguous())
         labels_sorted = (packed_sorted >> _LABEL_SHIFT).to(torch.float32)
         perm = (packed_sorted & _INDEX_MASK).to(torch.int64)
-        ctx.save_for_backward(perm)
-        ctx.mark_non_differentiable(labels_sorted)
-        return errors_sorted, labels_sorted
+        return errors_sorted, labels_sorted, perm
 
     @staticmethod
-    def backward(ctx, g_errors_sorted, _g_labels_sorted):
+    def setup_context(ctx, inputs, output):
+        _, labels_sorted, perm = output
+        ctx.save_for_backward(perm)
+        ctx.mark_non_differentiable(labels_sorted, perm)
+
+    @staticmethod
+    def backward(ctx, g_errors_sorted, _g_labels_sorted, _g_perm):
         (perm,) = ctx.saved_tensors
         g = torch.zeros_like(g_errors_sorted)
-        return g.scatter_(1, perm, g_errors_sorted), None
+        return g.scatter(-1, perm, g_errors_sorted), None
+
+    @staticmethod
+    def vmap(info, in_dims, errors, labels):
+        k = info.batch_size
+        errors = (errors.movedim(in_dims[0], 0) if in_dims[0] is not None
+                  else errors.expand(k, *errors.shape))
+        labels = (labels.movedim(in_dims[1], 0) if in_dims[1] is not None
+                  else labels.expand(k, *labels.shape))
+        b, p = errors.shape[1:]
+        out = SortDescWithLabels.apply(errors.reshape(k * b, p),
+                                       labels.reshape(k * b, p))
+        return tuple(t.reshape(k, b, p) for t in out), (0, 0, 0)
 
 
 def lovasz_hinge_flat_kernel(logits: torch.Tensor, labels: torch.Tensor,
@@ -251,6 +276,6 @@ def lovasz_hinge_flat_kernel(logits: torch.Tensor, labels: torch.Tensor,
     errors = 1.0 - logits.to(torch.float32) * signs
     if size_weighted:
         errors = weigh_errors_with_size(labels, errors)
-    errors_sorted, gt_sorted = SortDescWithLabels.apply(errors, labels)
+    errors_sorted, gt_sorted, _ = SortDescWithLabels.apply(errors, labels)
     grad = lovasz_grad(gt_sorted)
     return torch.sum(F.elu(errors_sorted) * grad, dim=-1)

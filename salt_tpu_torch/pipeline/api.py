@@ -31,8 +31,12 @@
   split plus the crops whose source image is in its validation split
   (reference: main.py:464-467).
 
-Not ported yet, raising ``NotImplementedError``: ``parallel.fold_parallel``
-(ROADMAP.md Queue A item 17).
+- ``parallel.fold_parallel`` trains every fold at once
+  (``parallel/fold_parallel.py``: one vmapped step for the K folds),
+  with ``parallel.fold_parallel_aligned`` taking the sequential loop's
+  randomness; the per-fold checkpoints land in the sequential layout, so
+  the loop's evaluation half reads them unchanged (JAX
+  ``pipeline/api.py:315-335``).
 """
 from __future__ import annotations
 
@@ -301,10 +305,6 @@ def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
     score it, predict the test bundle; then ``cv_scores.json``, the
     out-of-fold predictions and, with a test bundle, the submission
     (reference: main.py:578-863)."""
-    if do_train and config.parallel.fold_parallel:
-        raise NotImplementedError(
-            "parallel.fold_parallel: training all folds at once is not "
-            "ported yet (ROADMAP.md Queue A item 17)")
     if config.execution.dev_mode:
         bundle = bundle.dev_sample(config.execution.dev_mode_size,
                                    config.execution.seed)
@@ -320,6 +320,10 @@ def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
     runner_fp = None                   # the int8 gate's float runner
     if do_train:
         aux = _auxiliary(config, bundle, aux)
+    if do_train and config.parallel.fold_parallel:
+        _fit_folds_parallel(config, experiment, bundle, cv, runner, aux,
+                            device)
+        do_train = False       # the evaluation below reads the checkpoints
     for fold_id, (train_idx, valid_idx) in enumerate(
             cv.split(bundle.meta["z"].values)):
         name = add_fold_suffix(NETWORK, fold_id)
@@ -365,6 +369,31 @@ def _cv_loop(config: Config, experiment: Experiment, bundle: DataBundle,
         experiment.save_predictions("out_of_fold_train_predictions",
                                     oof_ids, np.stack(oof_images))
     return scores
+
+
+def _fit_folds_parallel(config: Config, experiment: Experiment,
+                        bundle: DataBundle, cv: KFoldBySortedValue,
+                        runner: SegmentationRunner,
+                        aux: Optional[DataBundle],
+                        device: Union[str, torch.device]) -> None:
+    """Every fold's fit as one fold-parallel run, each fold's train split
+    with its auxiliary crops, into the sequential loop's checkpoint
+    names."""
+    from salt_tpu_torch.parallel.fold_parallel import fit_fold_parallel
+    experiment.save_json("config", config.to_dict())
+    fold_train, fold_valid, names = [], [], []
+    for fold_id, (tr, va) in enumerate(cv.split(bundle.meta["z"].values)):
+        valid_b = bundle.take(va)
+        fold_train.append(_bundle_tuple(
+            _with_auxiliary(config, bundle.take(tr), valid_b, aux),
+            runner.use_depth))
+        fold_valid.append(_bundle_tuple(valid_b, runner.use_depth))
+        names.append(add_fold_suffix(NETWORK, fold_id))
+    fit_fold_parallel(
+        config, fold_train, valid_data=fold_valid, experiment=experiment,
+        checkpoint_names=names, seed=config.execution.seed,
+        align_with_sequential=config.parallel.fold_parallel_aligned,
+        device=device)
 
 
 def save_predictions(config: Config, experiment: Experiment,

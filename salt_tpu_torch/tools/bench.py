@@ -27,8 +27,13 @@
   sort), from ``tools/profiling.step_breakdown``;
 - ``device``: the card's name and power limit (nvidia-smi).
 
-The distilled students and the multichip probe are listed under
-``not_ported`` with the ROADMAP item that ports each.
+- ``multichip_dp_tta``: the weak-scaling probe of bench.py:104-126, the
+  hflip-TTA step at the inference batch on every rank of a
+  ``torch.distributed`` group (``parallel/mesh.py``), their rates
+  summed; None in one process, as the JAX bench at one chip.
+
+The distilled students are listed under ``not_ported`` with the ROADMAP
+item that ports them.
 
 Every measurement runs: one that fails fails the run. ``--device``
 defaults to ``cuda`` and raises without a card; ``--device cpu --tiny``
@@ -58,8 +63,6 @@ from salt_tpu_torch.train.throughput import (measure_tta_throughput,
 NOT_PORTED = {
     "distill": "not ported: ROADMAP Queue A item 19 (tools/distill_curve.py"
                ": the distilled students and their serve rate)",
-    "multichip_dp_tta": "not ported: ROADMAP Queue A item 17 (data "
-                        "parallelism)",
 }
 #: the hand kernels each profiled step launches
 STEP_KERNELS = {"tta_step": ("preprocess_inference_kernel",),
@@ -111,6 +114,30 @@ def salt_unet_config(cfg, tiny: bool):
     if tiny:
         model = dataclasses.replace(model, n_filters=4, repeat_blocks=2)
     return dataclasses.replace(cfg, model=model)
+
+
+def measure_multichip_dp_tta(cfg, device, single_chip_ips: float,
+                             iters: int, windows: int):
+    """Weak scaling over the process group: each rank's hflip-TTA rate at
+    the inference batch (seeded weights), summed over the ranks; with
+    each rank's share and the efficiency against ``single_chip_ips``.
+    None in one process (a world of one)."""
+    import torch.distributed as dist
+    from salt_tpu_torch.parallel.mesh import make_mesh
+    if not dist.is_initialized() or dist.get_world_size() <= 1:
+        return None
+    mesh = make_mesh(0, device)
+    runner = SegmentationRunner(cfg, mesh.device)
+    local = measure_tta_throughput(runner, runner.init_model(0),
+                                   cfg.training.batch_size_inference, iters,
+                                   windows)
+    total = torch.tensor([local], dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(total, group=mesh.group)
+    agg = float(total)
+    return {"value": agg, "unit": "images/sec_aggregate",
+            "chips": mesh.size, "per_chip": agg / mesh.size,
+            "efficiency_pct": agg / (mesh.size * single_chip_ips) * 100,
+            "batch": cfg.training.batch_size_inference}
 
 
 def main(argv=None) -> dict:
@@ -203,6 +230,9 @@ def main(argv=None) -> dict:
         "tta": cfg_q.postpro.use_tta, "quant_bits": cfg_q.model.quant_bits,
         "note": "in-memory synthetic images, seeded weights; upload + "
                 "forward + mask download in the timed loop"}
+    line["multichip_dp_tta"] = measure_multichip_dp_tta(
+        cfg, device, line["flagship_tta_bf16"]["value"], args.iters,
+        args.windows)
     line["not_ported"] = NOT_PORTED
     print(json.dumps(line), flush=True)
     return line

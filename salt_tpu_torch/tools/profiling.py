@@ -19,7 +19,9 @@ sessions' readings (:func:`kernel_ms`).
 - :func:`kernel_ms`: a function's device time per call, of its kernels
   whose name contains ``match`` (all of them without);
 - :func:`step_breakdown`: where a step's device time goes (top kernels,
-  busy share, kernel launches per step).
+  busy share, kernel launches per step);
+- :func:`busy_us`: the time in which any of a session's device events
+  ran (their intervals' union).
 
 Run as a module on the card, the check times row 6's first GEMM (the
 matmul kernel at [524288, 768] x [768, 128], bf16) and ``torch.matmul``
@@ -87,6 +89,22 @@ def session_reading(events: Sequence, calls: int, match: str = "") -> Dict:
             ms += sum(durations) / len(durations) * n / 1e3
             launches += n
     return {"ms": ms, "launches_per_call": launches, "recorded": recorded}
+
+
+def busy_us(events: Sequence) -> float:
+    """The time in us during which at least one of ``events`` (device
+    events) ran: the union of their intervals. Kernels on more than one
+    stream overlap, and their durations summed then exceed it."""
+    total, start, end = 0.0, None, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events):
+        if end is None or s > end:
+            if end is not None:
+                total += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    return total if end is None else total + end - start
 
 
 def name_readings(events: Sequence, calls: int) -> Dict[str, Dict]:
@@ -216,6 +234,23 @@ def averages_rules(rows: Sequence, calls: int, match: str) -> Dict:
     return {"matched": sum(self_device_us(r) for r in hits)
             / max(sum(r.count for r in hits), 1) / 1e3,
             "all": sum(self_device_us(r) for r in rows) / calls / 1e3}
+
+
+def read_trace(path: str, match: str = "") -> Dict[str, Dict[str, float]]:
+    """The device kernels of a Chrome trace that ``torch.profiler``
+    exported (``cli --profile DIR`` writes ``DIR/trace.json``): for each
+    kernel whose name contains ``match``, {"launches", "us"} (its events
+    and their summed durations)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out: Dict[str, Dict[str, float]] = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "kernel" and match in name:
+            k = out.setdefault(name, {"launches": 0, "us": 0.0})
+            k["launches"] += 1
+            k["us"] += float(e.get("dur", 0.0))
+    return out
 
 
 def card() -> Dict[str, str]:

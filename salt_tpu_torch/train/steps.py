@@ -43,7 +43,7 @@ computes in ``training.dtype`` under autocast (:meth:`train_state`).
 from __future__ import annotations
 
 from functools import cached_property
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +55,7 @@ from salt_tpu_torch.core.experiment import load_flat_npz
 from salt_tpu_torch.core.logging import get_logger
 from salt_tpu_torch.data.pipeline import to_device
 from salt_tpu_torch.losses.api import get_loss_fn
+from salt_tpu_torch.models.blocks import DropoutDraws
 from salt_tpu_torch.models.convert import load_flax_flat
 from salt_tpu_torch.models.registry import (DTYPES, build_model,
                                             init_flax_like, init_seeded,
@@ -226,6 +227,34 @@ class SegmentationRunner:
         state.optimizer.step()
         state.step += 1
         return loss.detach()
+
+    def dropout_channels(self, model: nn.Module) -> List[int]:
+        """The channels of each channel-dropout site the train forward
+        reaches, in order; none without ``dropout_2d``. Read from one
+        eval-mode forward of a zero image through a recording
+        :class:`DropoutDraws`."""
+        if not getattr(model, "dropout_2d", 0) > 0:
+            return []
+        record = DropoutDraws()
+        was_training = model.training
+        x = torch.zeros((1, 3, *self._net_hw), device=self.device)
+        with torch.no_grad():
+            model.eval()
+            model(x, record, depth=self.depth_input(None, 1))
+        model.train(was_training)
+        return [c for _, c in record.shapes]
+
+    def draw_step(self, generator: torch.Generator, b: int, h: int, w: int,
+                  channels: List[int]
+                  ) -> Tuple[AugmentParams, List[torch.Tensor]]:
+        """A [b, h, w] step's draws from ``generator`` in the order
+        :meth:`train_step` makes them: the augmentation, then the
+        uniform draws [b, C, 1, 1] of each dropout site of
+        ``channels``."""
+        params = draw_augment_params(generator, b, h, w)
+        return params, [torch.rand((b, c, 1, 1), generator=generator,
+                                   device=generator.device)
+                        for c in channels]
 
     def train_step(self, state: TrainState, images_u8: torch.Tensor,
                    masks_u8: torch.Tensor, generator: torch.Generator,

@@ -2,8 +2,8 @@
 
 (g) importing every ``salt_tpu_torch`` module loads no ``jax``, ``flax``,
 ``optax``, ``aqt`` or ``salt_tpu``; (h) every entry point called without
-``device`` raises where CUDA is absent (and the CLI's item-17 parts raise
-``NotImplementedError``); (i) the kernels' wrappers refuse what their kernel
+``device`` raises where CUDA is absent (the CLI's ``cost-analysis``,
+``--profile``, ``--trace-steps`` and fold-parallel CV too); (i) the kernels' wrappers refuse what their kernel
 cannot take before any launch."""
 import os
 import subprocess
@@ -43,7 +43,9 @@ for needed in ("pipeline.serving", "ops.preprocess_kernel", "ops.sort_kernel",
                "train.classifier", "train.stacking", "train.distill",
                "pipeline.emptiness", "pipeline.stacking",
                "pipeline.full_solution", "pipeline.ensemble",
-               "pipeline.analysis", "pipeline.preview", "pipeline.distill"):
+               "pipeline.analysis", "pipeline.preview", "pipeline.distill",
+               "parallel.mesh", "parallel.dryrun", "parallel.fold_parallel",
+               "train.trace", "train.cost_analysis", "utils", "ops.costs"):
     assert "salt_tpu_torch." + needed in names, names
 for name in names:
     importlib.import_module(name)
@@ -104,13 +106,19 @@ def test_cli_new_commands_default_to_cuda_and_raise(no_cuda, tmp_path,
     assert not (tmp_path / "e").exists() and not (tmp_path / "w").exists()
 
 
-@pytest.mark.parametrize("argv", [["cost-analysis"],
-                                  ["train", "--profile", "trace"],
-                                  ["train", "--trace-steps"]])
-def test_cli_item_17_raises(argv):
+@pytest.mark.parametrize("argv", [
+    ["cost-analysis"], ["train", "--profile", "trace"],
+    ["train", "--trace-steps"],
+    ["train-evaluate-predict-cv", "--set", "parallel.fold_parallel=true"]])
+def test_cli_tooling_defaults_to_cuda_and_raises(no_cuda, tmp_path, argv):
+    """``cost-analysis``, ``--profile``, ``--trace-steps`` and the
+    fold-parallel CV run on the card unless ``--device cpu`` is given,
+    and write nothing where there is none."""
     from salt_tpu_torch import cli
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli.main([*argv, "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main([*argv, "--synthetic", "8", "--epochs", "1",
+                  "--set", f"paths.experiment_dir={tmp_path / 'e'}"])
+    assert not (tmp_path / "e").exists() and not (tmp_path / "trace").exists()
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_launch():

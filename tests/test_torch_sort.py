@@ -101,7 +101,8 @@ def test_differentiable_sort_matches_jax_custom_vjp(ties, monkeypatch):
     (_, (jes, jls)), jgrad = jax.value_and_grad(jax_fn, has_aux=True)(
         jnp.asarray(keys))
     e = torch.from_numpy(keys).requires_grad_(True)
-    es, ls = sort_kernel.SortDescWithLabels.apply(e, torch.from_numpy(labels))
+    es, ls, _ = sort_kernel.SortDescWithLabels.apply(
+        e, torch.from_numpy(labels))
     (es * torch.from_numpy(g)).sum().backward()
     np.testing.assert_array_equal(es.detach().numpy(), np.asarray(jes))
     np.testing.assert_array_equal(ls.numpy(), np.asarray(jls))

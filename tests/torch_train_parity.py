@@ -141,3 +141,32 @@ def assert_step_matches(jgrads, jparams, old, pgrads, pparams, lr, l2,
                                    atol=1e-3 * lr, err_msg=k)
     total = sum(v.size for v in jparams.values())
     assert n_free < max_free * total, (n_free, total)
+
+
+def fold_config():
+    """The fold-parallel tests' port config: SaltUNet (8 filters, 2
+    levels), fp32, batch 8, 2 folds."""
+    from salt_tpu_torch.core.config import default_config
+    cfg = default_config()
+    cfg.model.architecture = "SaltUNet"
+    cfg.model.n_filters = 8
+    cfg.model.repeat_blocks = 2
+    cfg.training.dtype = "float32"
+    cfg.training.batch_size_train = 8
+    cfg.training.batch_size_inference = 8
+    cfg.execution.n_cv_splits = 2
+    return cfg
+
+
+def fold_splits(bundle, n=2):
+    """Per-fold (images, masks, None) train and validation tuples of the
+    depth-stratified ``n``-fold split."""
+    from salt_tpu_torch.data.kfold import KFoldBySortedValue
+    cv = KFoldBySortedValue(n_splits=n)
+    fold_train, fold_valid = [], []
+    for tr, va in cv.split(bundle.meta["z"].values):
+        t, v = bundle.take(tr), bundle.take(va)
+        fold_train.append((t.images, t.masks, None))
+        fold_valid.append((v.images, v.masks, None))
+    return fold_train, fold_valid
+
