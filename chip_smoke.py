@@ -7,7 +7,8 @@ K-fold CV loop (``train-evaluate-predict-cv`` / ``evaluate-predict-cv``)
 U-Net on the other encoders and the depth net, LargeKernelMatters and
 PSPNet, int8 serving and its quality gate, the second-level pipelines
 (``full-solution``: emptiness CV, stacking, gating, and the commands
-around them), and the port's bench.
+around them), whole reference checkpoints converted and served, the
+distillation curve, and the port's bench.
 
     python3 chip_smoke.py
 
@@ -74,7 +75,7 @@ Phases (each raises on failure; the script then exits non-zero):
                 DenseNet-121 and ResNet-50 encoders and
                 UNetResNetWithDepth-34, full width, bf16, conv kernel
                 "on", seeded weights: fp32 logits on the card against the
-                CPU (batch 2), hflip-TTA masks of 32 synthetic images
+                CPU (batch 2), hflip-TTA masks of 16 synthetic images
                 against the CPU's fp32 under the margin rule, ``serve
                 --synthetic 480`` at batch 24 (images/s; the preprocess
                 and conv kernels' launches against the JAX route's
@@ -135,7 +136,31 @@ Phases (each raises on failure; the script then exits non-zero):
                 ``empty-evaluate-predict-cv``, ``ensemble``,
                 ``stacking-cv`` and ``distill`` (SaltUNet-16) over the
                 stage directories, each command's kernel launches against
-                its configuration's.
+                its configuration's;
+20. import (run after arch2) — whole reference checkpoints through
+                ``models/torch_import.py``: a seeded state_dict of the
+                reference's flagship at full width (ResNet-34 trunk, conv
+                biases under BN, the reference's key names) converted and
+                grafted into the reference-fidelity build
+                (``conv_pad_mode="reference"``, ``upsample_mode=
+                "align_corners"``): fp32 logits on the card against a
+                direct functional torch forward of the state_dict at
+                2e-3, bf16 hflip-TTA masks of 32 images with the conv
+                kernel "on" against the CPU's fp32 under the margin rule,
+                then ``serve --synthetic 2048`` of the grafted weights as
+                a 2-fold experiment (row 3 in its halo form: 8 of the 14
+                launches a forward); LKM-34, PSPNet-34,
+                UNetResNetWithDepth-34, EmptinessClassifier-34 and the
+                stacking heads converted and grafted, card against CPU;
+21. distill_curve (run after bench) — a teacher (``cli
+                train-evaluate-predict-cv`` of the flagship, "on", 480
+                synthetic images of the "real" difficulty, 2 folds, 1
+                epoch), then ``salt_tpu_torch.tools.distill_curve`` over
+                its five students (1 epoch, batches 128 / 64, the TTA
+                probe), each student's launches of rows 1, 2, 8 and 9
+                against its configuration's, and the bench's
+                ``emit_distill_context`` (its bar: the bench phase's
+                ``flagship_tta_int8``) and ``measure_serve_student``.
 Device times of the first seven kernels come from whole profiler
 sessions (``tools/profiling.py``: the profiler loses events), the int8
 convs' from CUDA graphs of back-to-back calls (their whole calls' and
@@ -2416,15 +2441,19 @@ def phase_bench(card):
     kernels (INT8_CONV_PER_FORWARD convs a forward, INT8_WGMMA_PER_FORWARD
     of them on the wgmma kernel, each after two quantize calls; the
     profiled int8 step reads both conv kernels) and the train steps the
-    sort kernel; returns their launches."""
+    sort kernel; with no distill curve under its ``--distill-root`` the
+    line holds no student context. Returns their launches and the line's
+    ``flagship_tta_int8`` images/s."""
     from salt_tpu_torch.ops import preprocess_kernel as pk
     from salt_tpu_torch.ops import sort_kernel as sk
     from salt_tpu_torch.tools import bench
     pk.launches = sk.launches = 0
     _int8_reset()
     t0 = time.perf_counter()
-    line = bench.main(["--iters", "10", "--windows", "2", "--train-iters",
-                       "5", "--profile-steps", "3"])
+    with tempfile.TemporaryDirectory() as no_curve:
+        line = bench.main(["--iters", "10", "--windows", "2",
+                           "--train-iters", "5", "--profile-steps", "3",
+                           "--distill-root", no_curve])
     wall = time.perf_counter() - t0
     counts = dict(_int8_counts(), preprocess=pk.launches, sort=sk.launches)
     int8_forwards = counts["int8_conv"] // INT8_CONV_PER_FORWARD
@@ -2459,10 +2488,12 @@ def phase_bench(card):
             top=[(t["kernel"][:50], t["calls_per_step"],
                   round(t["ms_per_step"], 3)) for t in b["top"][:6]],
             card=repr(card))
+    if any(k.startswith(("distill", "serve_student")) for k in line):
+        raise AssertionError(f"bench line without a curve: {sorted(line)}")
     log("bench", wall_s=f"{wall:.3f}", card=repr(card),
         **{f"{k}_launches": v for k, v in counts.items()},
         **{k: f"{line[k]['value']:.1f}" for k in rates})
-    return counts
+    return counts, line["flagship_tta_int8"]["value"]
 
 
 #: the arch phase's architectures: (name, encoder_depth, the conv kernel's
@@ -2476,9 +2507,10 @@ ARCH_CELLS = (("UNetSeResNet", 50, 3), ("UNetSeResNetXt", 50, 0),
               ("UNetResNetWithDepth", 34, 9))
 ARCH_TRAIN = ("UNetSeResNet", "UNetResNetWithDepth")
 N_ARCH_TTA = 64                   # hflip-TTA masks, card bf16 vs CPU fp32
-#: the arch phase's U-Nets take 32 (their CPU fp32 references, 20-40 s
-#: each at 64, held the whole run over half its time limit)
-N_ARCH_TTA_UNETS = 32
+#: the arch phase's U-Nets take 16 (their CPU fp32 references took 20-40
+#: s each at 64, and 30-35 s at 32 for the three bottleneck U-Nets on a
+#: slow host, which held the whole run near 900 s of its 1,200)
+N_ARCH_TTA_UNETS = 16
 N_ARCH_SERVE = 480                # serve --synthetic, batch 24
 N_ARCH_TRAIN = 144                # fold 0 of 6: 120 train / 24 valid
 
@@ -2950,7 +2982,7 @@ def _fs_reset():
     ck.launches = pk.launches = sk.launches = 0
 
 
-def _fs_command(argv, want, what, card):
+def _fs_command(argv, want, what, card, phase="full_solution"):
     """``cli.main(argv)`` with the three kernels' counts set to 0 just
     before and read just after; they must equal ``want``. Returns (wall
     seconds, counts)."""
@@ -2965,7 +2997,7 @@ def _fs_command(argv, want, what, card):
     if rc != 0 or counts != want:
         raise AssertionError(f"{what}: rc {rc}, kernel launches {counts}, "
                              f"expected {want}")
-    log("full_solution", command=what, wall_s=f"{wall:.3f}", **counts,
+    log(phase, command=what, wall_s=f"{wall:.3f}", **counts,
         card=repr(card))
     return wall, counts
 
@@ -3751,6 +3783,637 @@ def _cv_int8_gate(exp, flags, card, n_folds, val_batches, test_batches):
     return {k: got[k] + served[k] for k in got}
 
 
+# -- import: whole reference checkpoints, converted and grafted --------------
+
+#: ResNet-34's BasicBlocks a stage, and the stage widths
+REF_LAYERS = (3, 4, 6, 3)
+REF_WIDTHS = (64, 128, 256, 512)
+#: hflip-TTA masks of the imported flagship, card bf16 vs CPU fp32
+N_IMPORT_TTA = 32
+#: the imported flagship's infer form with model.pallas_conv "on": 14
+#: convs of 64 -> 64 take row 3 (the CPU count of the route), the 8 of the
+#: decoders and head in its halo form (the reference's replication pad
+#: comes first, then a VALID conv), the 6 of the encoder's layer1 SAME
+IMPORT_CONV_PER_FORWARD = 14
+IMPORT_HALO_PER_FORWARD = 8
+
+
+def _ref_conv(rng, o, i, kh, kw=None):
+    kw = kh if kw is None else kw
+    return (rng.randn(o, i, kh, kw) / math.sqrt(i * kh * kw)).astype("f4")
+
+
+def _ref_vec(rng, n, scale=0.05):
+    return (scale * rng.randn(n)).astype("f4")
+
+
+def _ref_bn(sd, rng, name, c):
+    sd[f"{name}.weight"] = (0.8 + 0.4 * rng.rand(c)).astype("f4")
+    sd[f"{name}.bias"] = _ref_vec(rng, c, 0.1)
+    sd[f"{name}.running_mean"] = _ref_vec(rng, c, 0.1)
+    sd[f"{name}.running_var"] = (0.8 + 0.4 * rng.rand(c)).astype("f4")
+
+
+def _ref_cbr(sd, rng, pre, cin, cout, kh=3, kw=3):
+    """The reference's Conv2dBnRelu: the conv keeps its bias under BN."""
+    sd[f"{pre}.conv.weight"] = _ref_conv(rng, cout, cin, kh, kw)
+    sd[f"{pre}.conv.bias"] = _ref_vec(rng, cout)
+    _ref_bn(sd, rng, f"{pre}.batch_norm", cout)
+
+
+def _ref_resnet34(sd, rng, prefix):
+    """torchvision ResNet-34's keys (no fc) under ``prefix``."""
+    sd[f"{prefix}conv1.weight"] = _ref_conv(rng, 64, 3, 7)
+    _ref_bn(sd, rng, f"{prefix}bn1", 64)
+    cin = 64
+    for stage, (w, n) in enumerate(zip(REF_WIDTHS, REF_LAYERS), start=1):
+        for i in range(n):
+            pre = f"{prefix}layer{stage}.{i}"
+            c = cin if i == 0 else w
+            sd[f"{pre}.conv1.weight"] = _ref_conv(rng, w, c, 3)
+            _ref_bn(sd, rng, f"{pre}.bn1", w)
+            sd[f"{pre}.conv2.weight"] = _ref_conv(rng, w, w, 3)
+            _ref_bn(sd, rng, f"{pre}.bn2", w)
+            if i == 0 and c != w:
+                sd[f"{pre}.downsample.0.weight"] = _ref_conv(rng, w, c, 1)
+                _ref_bn(sd, rng, f"{pre}.downsample.1", w)
+        cin = w
+
+
+def _ref_decoder(sd, rng, pre, cin, cmid, cout):
+    _ref_cbr(sd, rng, f"{pre}.conv1", cin, cmid)
+    _ref_cbr(sd, rng, f"{pre}.conv2", cmid, cout)
+    hid = max(cout // 16, 1)
+    sd[f"{pre}.channel_se.fc.0.weight"] = _ref_conv(rng, hid, cout, 1)[
+        :, :, 0, 0]
+    sd[f"{pre}.channel_se.fc.0.bias"] = _ref_vec(rng, hid)
+    sd[f"{pre}.channel_se.fc.2.weight"] = _ref_conv(rng, cout, hid, 1)[
+        :, :, 0, 0]
+    sd[f"{pre}.channel_se.fc.2.bias"] = _ref_vec(rng, cout)
+    sd[f"{pre}.spatial_se.fc.weight"] = _ref_conv(rng, 1, cout, 1)
+    sd[f"{pre}.spatial_se.fc.bias"] = _ref_vec(rng, 1)
+
+
+def _ref_unet_sd(seed):
+    """A seeded state_dict of the reference's flagship, UNetResNet34 with
+    scSE decoders and the hypercolumn, under its own key names
+    (``encoders.encoder.*``, ``center``, ``dec5..dec1``, ``final``), as
+    tests/test_flagship_golden.py builds it at ResNet-18."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sd = {}
+    _ref_resnet34(sd, rng, "encoders.encoder.")
+    b = 512
+    _ref_cbr(sd, rng, "center.0", b, b)
+    _ref_cbr(sd, rng, "center.1", b, b // 2)
+    _ref_decoder(sd, rng, "dec5", b + b // 2, b, b // 8)
+    _ref_decoder(sd, rng, "dec4", b // 2 + b // 8, b // 2, b // 8)
+    _ref_decoder(sd, rng, "dec3", b // 4 + b // 8, b // 4, b // 8)
+    _ref_decoder(sd, rng, "dec2", b // 8 + b // 8, b // 8, b // 8)
+    _ref_decoder(sd, rng, "dec1", b // 8, b // 16, b // 8)
+    _ref_cbr(sd, rng, "final.0", 5 * b // 8, b // 8)
+    sd["final.1.weight"] = _ref_conv(rng, 2, b // 8, 1)
+    sd["final.1.bias"] = _ref_vec(rng, 2)
+    return sd
+
+
+def _ref_encoder_only(seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sd = {}
+    _ref_resnet34(sd, rng, "encoders.encoder.")
+    return sd, rng
+
+
+def _ref_lkm_sd(seed, k=9, ic=21):
+    """LargeKernelMatters-34 as the registry builds it (k 9, 21 internal
+    channels), tests/test_arch_goldens.py's layout."""
+    sd, rng = _ref_encoder_only(seed)
+    for stage, cin in zip(range(2, 6), REF_WIDTHS):
+        _ref_cbr(sd, rng, f"gcn{stage}.conv1.0", cin, ic, k, 1)
+        _ref_cbr(sd, rng, f"gcn{stage}.conv1.1", ic, ic, 1, k)
+        _ref_cbr(sd, rng, f"gcn{stage}.conv2.0", cin, ic, 1, k)
+        _ref_cbr(sd, rng, f"gcn{stage}.conv2.1", ic, ic, k, 1)
+        _ref_cbr(sd, rng, f"enc_br{stage}.conv.0", ic, ic)
+        _ref_cbr(sd, rng, f"enc_br{stage}.conv.1", ic, ic)
+    for stage in range(2, 6):
+        sd[f"deconv{stage}.deconv.weight"] = _ref_conv(rng, ic, ic, 3)
+        sd[f"deconv{stage}.deconv.bias"] = _ref_vec(rng, ic)
+        _ref_bn(sd, rng, f"deconv{stage}.batch_norm", ic)
+    for stage in range(1, 5):
+        _ref_cbr(sd, rng, f"dec_br{stage}.conv.0", ic, ic)
+        _ref_cbr(sd, rng, f"dec_br{stage}.conv.1", ic, ic)
+    sd["final.weight"] = _ref_conv(rng, 2, ic, 1)
+    sd["final.bias"] = _ref_vec(rng, 2)
+    return sd
+
+
+def _ref_pspnet_sd(seed, f=1024):
+    """PSPNet-34 as the registry builds it (1024 deep features)."""
+    import numpy as np
+    sd, rng = _ref_encoder_only(seed)
+    for i in range(4):
+        sd[f"psp.stages.{i}.1.weight"] = _ref_conv(rng, 512, 512, 1)
+    sd["psp.bottleneck.weight"] = _ref_conv(rng, f, 512 * 5, 1)
+    sd["psp.bottleneck.bias"] = _ref_vec(rng, f)
+    c = f
+    for up in ("up4", "up3", "up2", "up1"):
+        sd[f"{up}.conv.0.weight"] = _ref_conv(rng, c // 2, c, 3)
+        sd[f"{up}.conv.0.bias"] = _ref_vec(rng, c // 2)
+        _ref_bn(sd, rng, f"{up}.conv.1", c // 2)
+        sd[f"{up}.conv.2.weight"] = np.full((1,), 0.2, "f4")
+        c //= 2
+    _ref_cbr(sd, rng, "final.0", f // 16 * 15, 64)
+    sd["final.1.weight"] = _ref_conv(rng, 2, 64, 1)
+    sd["final.1.bias"] = _ref_vec(rng, 2)
+    return sd
+
+
+def _ref_depth_sd(seed):
+    import numpy as np
+    sd = _ref_unet_sd(seed)
+    rng = np.random.RandomState(seed + 1)
+    c = 5 * 512 // 8
+    sd["depth_channel_excitation.fc.0.weight"] = rng.randn(c, 1).astype("f4")
+    sd["depth_channel_excitation.fc.0.bias"] = _ref_vec(rng, c)
+    return sd
+
+
+def _ref_emptiness_sd(seed):
+    """EmptinessClassifier-34: the torchvision ResNet under ``encoder.*``
+    with its ImageNet ``fc`` (which the converter skips), and
+    ``classifier.1``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sd = {}
+    _ref_resnet34(sd, rng, "encoder.")
+    sd["encoder.fc.weight"] = _ref_conv(rng, 1000, 512, 1)[:, :, 0, 0]
+    sd["encoder.fc.bias"] = _ref_vec(rng, 1000)
+    sd["classifier.1.weight"] = _ref_conv(rng, 2, 512, 1)
+    sd["classifier.1.bias"] = _ref_vec(rng, 2)
+    return sd
+
+
+def _ref_stacking_sd(seed, with_depth, n_models=18, filters=32):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sd = {}
+    _ref_cbr(sd, rng, "conv.0", n_models, filters)
+    if with_depth:
+        sd["depth_channel_excitation.fc.0.weight"] = rng.randn(
+            filters, 1).astype("f4")
+        sd["depth_channel_excitation.fc.0.bias"] = _ref_vec(rng, filters)
+    sd["final.0.weight"] = _ref_conv(rng, 2, filters, 1)
+    sd["final.0.bias"] = _ref_vec(rng, 2)
+    return sd
+
+
+def _ref_unet_logits(sd, x):
+    """The reference flagship's forward (architectures/unet.py:89-109,
+    eval mode, hypercolumn on) in ``torch.nn.functional`` on the
+    state_dict itself, as tests/test_flagship_golden.py:103-187 evaluates
+    it at ResNet-18: replication pad of 2 rows on top and 2 columns on the
+    right before each decoder conv (base.py:26-31), align-corners bilinear
+    upsampling (torch 0.3.1's), the conv biases under BN."""
+    import torch
+    import torch.nn.functional as F
+
+    def t(k):
+        return torch.from_numpy(sd[k]).to(x.device)
+
+    def bn(y, p):
+        return F.batch_norm(y, t(f"{p}.running_mean"), t(f"{p}.running_var"),
+                            t(f"{p}.weight"), t(f"{p}.bias"), False, 0.9,
+                            1e-5)
+
+    def cbr(y, pre):
+        y = F.pad(y, (0, 2, 2, 0), mode="replicate")
+        y = F.conv2d(y, t(f"{pre}.conv.weight"), t(f"{pre}.conv.bias"))
+        return F.relu(bn(y, f"{pre}.batch_norm"))
+
+    def up(y, factor=2):
+        return F.interpolate(y, scale_factor=factor, mode="bilinear",
+                             align_corners=True)
+
+    def decoder(y, e, pre):
+        y = up(y)
+        if e is not None:
+            y = torch.cat([y, e], 1)
+        y = cbr(cbr(y, f"{pre}.conv1"), f"{pre}.conv2")
+        g = F.relu(F.linear(y.mean(dim=(2, 3)),
+                            t(f"{pre}.channel_se.fc.0.weight"),
+                            t(f"{pre}.channel_se.fc.0.bias")))
+        g = torch.sigmoid(F.linear(g, t(f"{pre}.channel_se.fc.2.weight"),
+                                   t(f"{pre}.channel_se.fc.2.bias")))
+        s = torch.sigmoid(F.conv2d(y, t(f"{pre}.spatial_se.fc.weight"),
+                                   t(f"{pre}.spatial_se.fc.bias")))
+        return F.relu(y * g[:, :, None, None] + y * s)
+
+    pre0 = "encoders.encoder."
+    y = F.conv2d(x, t(f"{pre0}conv1.weight"), stride=2, padding=3)
+    y = F.relu(bn(y, f"{pre0}bn1"))
+    feats = []
+    for stage, n in enumerate(REF_LAYERS, start=1):
+        for i in range(n):
+            pre = f"{pre0}layer{stage}.{i}"
+            stride = 2 if stage > 1 and i == 0 else 1
+            z = F.relu(bn(F.conv2d(y, t(f"{pre}.conv1.weight"),
+                                   stride=stride, padding=1), f"{pre}.bn1"))
+            z = bn(F.conv2d(z, t(f"{pre}.conv2.weight"), padding=1),
+                   f"{pre}.bn2")
+            if f"{pre}.downsample.0.weight" in sd:
+                y = bn(F.conv2d(y, t(f"{pre}.downsample.0.weight"),
+                                stride=stride), f"{pre}.downsample.1")
+            y = F.relu(z + y)
+        feats.append(y)
+    enc2, enc3, enc4, enc5 = feats
+    center = F.avg_pool2d(cbr(cbr(enc5, "center.0"), "center.1"), 2, 2)
+    dec5 = decoder(center, enc5, "dec5")
+    dec4 = decoder(dec5, enc4, "dec4")
+    dec3 = decoder(dec4, enc3, "dec3")
+    dec2 = decoder(dec3, enc2, "dec2")
+    dec1 = decoder(dec2, None, "dec1")
+    hyper = torch.cat([dec1, up(dec2, 2), up(dec3, 4), up(dec4, 8),
+                       up(dec5, 16)], 1)
+    return F.conv2d(cbr(hyper, "final.0"), t("final.1.weight"),
+                    t("final.1.bias"))
+
+
+def _import_config(arch="UNetResNet", **model):
+    """The reference-fidelity build (``conv_pad_mode="reference"``,
+    ``upsample_mode="align_corners"``) of ``arch`` at encoder_depth 34,
+    bf16, hflip TTA, batch 24."""
+    from salt_tpu_torch.core.config import default_config
+    cfg = default_config()
+    cfg.model.architecture = arch
+    cfg.model.encoder_depth = 34
+    cfg.model.conv_pad_mode = "reference"
+    cfg.model.upsample_mode = "align_corners"
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    cfg.postpro.use_tta = True
+    cfg.training.batch_size_inference = SERVE_BATCH
+    return cfg
+
+
+def _graft(model, convert, sd):
+    """``graft_model`` of ``convert(sd)`` into ``model``; every leaf of
+    the model must come from the state_dict."""
+    from salt_tpu_torch.models.convert import to_flax_flat
+    from salt_tpu_torch.models.torch_import import graft_model
+    n = graft_model(model, *convert(sd))
+    if n != len(to_flax_flat(model)):
+        raise AssertionError(f"{type(model).__name__}: {n} leaves grafted "
+                             f"of {len(to_flax_flat(model))}")
+    return model
+
+
+@contextlib.contextmanager
+def _halo_calls(calls):
+    """Append each row-3 call's ``halo`` to ``calls`` while the block runs
+    (``ops/conv_pair.py`` looks the kernel up in ``ops.conv_kernel``)."""
+    from salt_tpu_torch.ops import conv_kernel as ck
+    kernel = ck.conv3x3_pair_kernel
+
+    def observed(x, w, halo=False):
+        calls.append(bool(halo))
+        return kernel(x, w, halo=halo)
+
+    ck.conv3x3_pair_kernel = observed
+    try:
+        yield calls
+    finally:
+        ck.conv3x3_pair_kernel = kernel
+
+
+def _import_flagship(dev, card):
+    """The reference flagship: the direct forward against the grafted
+    port model in fp32 on the card, bf16 TTA masks against the CPU's
+    fp32, then ``serve`` of the grafted weights as a 2-fold experiment.
+    Returns the launches of rows 1 and 3."""
+    import copy
+    import numpy as np
+    import torch
+    from salt_tpu_torch.core.experiment import checkpoint_path, save_flat_npz
+    from salt_tpu_torch.data.bundle import synthetic_bundle
+    from salt_tpu_torch.models.convert import to_flax_flat
+    from salt_tpu_torch.models.registry import build_model
+    from salt_tpu_torch.models.torch_import import convert_unet_resnet
+    from salt_tpu_torch.ops import conv_kernel as ck
+    from salt_tpu_torch.ops import preprocess_kernel as pk
+    from salt_tpu_torch.ops.preprocess import preprocess_inference
+    from salt_tpu_torch.pipeline.serving import serve
+    from salt_tpu_torch.train.steps import SegmentationRunner
+
+    sd = _ref_unet_sd(seed=34)
+    cfg = _import_config(pallas_conv="on")
+    model = _graft(build_model(cfg.model), convert_unet_resnet, sd)
+    x = preprocess_inference(torch.from_numpy(seeded_images(2, seed=3)))
+    x = x.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        want = _ref_unet_logits(sd, x)
+        card_model = copy.deepcopy(model).to(
+            dev, memory_format=torch.channels_last)
+        got = card_model(x.to(dev)).cpu()
+        got_infer = card_model(x.to(dev), infer=True).cpu()
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got_infer, want, rtol=2e-3, atol=2e-3)
+
+    bundle = synthetic_bundle(N_IMPORT_TTA, seed=7, with_masks=False)
+    cpu_cfg = _import_config(pallas_conv="on")
+    cpu_cfg.training.dtype = "float32"
+    cpu_runner = SegmentationRunner(cpu_cfg, "cpu")
+    p_cpu = cpu_runner.predict_dataset(cpu_runner.place(copy.deepcopy(model)),
+                                       bundle.images, tta=True)
+    runner = SegmentationRunner(cfg, dev)
+    bf16_model = runner.place(copy.deepcopy(model))
+    ck.launches = 0
+    with _halo_calls([]) as halo:
+        p_card = runner.predict_dataset(bf16_model, bundle.images, tta=True)
+        torch.cuda.synchronize()
+    forwards = math.ceil(N_IMPORT_TTA / SERVE_BATCH)
+    if (ck.launches != IMPORT_CONV_PER_FORWARD * forwards
+            or sum(halo) != IMPORT_HALO_PER_FORWARD * forwards
+            or not np.isfinite(p_card).all()):
+        raise AssertionError(f"import TTA: row 3 launched {ck.launches} "
+                             f"times ({sum(halo)} halo) in {forwards} "
+                             "forwards, or non-finite probabilities")
+    threshold = float(np.median(p_cpu[:, 1]))
+    delta, undecidable = margin_rule(
+        "imported flagship bf16 card vs fp32 CPU", p_card[:, 1], p_cpu[:, 1],
+        p_card[:, 1] > threshold, p_cpu[:, 1] > threshold, threshold)
+    del bf16_model, card_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "imported")
+        flat = to_flax_flat(model)
+        for fold in range(N_FOLDS):
+            save_flat_npz(checkpoint_path(exp, f"network_fold_{fold}"), flat)
+        with open(os.path.join(exp, "config.json"), "w") as f:
+            json.dump(cfg.to_dict(), f)
+        out_csv = os.path.join(tmp, "submission.csv")
+        pk.launches = ck.launches = 0
+        with _halo_calls([]) as halo:
+            t0 = time.perf_counter()
+            result = serve(_import_config(), exp, "", out_csv,
+                           synthetic=N_SERVE_IMAGES, device=dev)
+            wall = time.perf_counter() - t0
+        counts = dict(preprocess=pk.launches, conv=ck.launches)
+        ids, masks = _csv_masks(out_csv)
+    forwards = result["batches"] + result["warmup_batches"]
+    want_counts = dict(preprocess=forwards,
+                       conv=IMPORT_CONV_PER_FORWARD * forwards)
+    if (counts != want_counts or len(ids) != N_SERVE_IMAGES
+            or sum(halo) != IMPORT_HALO_PER_FORWARD * forwards
+            or result["batches"] != N_FOLDS * math.ceil(
+                N_SERVE_IMAGES / SERVE_BATCH)):
+        raise AssertionError(f"imported serve: {result}, launches {counts} "
+                             f"({sum(halo)} halo), expected {want_counts}")
+    log("import", arch="UNetResNet-34 (reference checkpoint)",
+        leaves=len(to_flax_flat(model)), fp32_vs_direct=float(
+            (got - want).abs().max()),
+        fp32_infer_vs_direct=float((got_infer - want).abs().max()),
+        logit_scale=float(want.abs().max()), tta_images=N_IMPORT_TTA,
+        tta_prob_delta=delta, tta_undecidable_px=undecidable,
+        mask_threshold=threshold, card=repr(card))
+    log("import_serve", images=N_SERVE_IMAGES, folds=N_FOLDS,
+        batch=SERVE_BATCH, tta="hflip", dtype=cfg.training.dtype,
+        pad="reference", upsample="align_corners", pallas_conv="on",
+        images_per_s=result["images_per_sec"],
+        timed_s=f"{result['seconds']:.3f}", wall_s=f"{wall:.3f}",
+        batches=result["batches"], warmup_batches=result["warmup_batches"],
+        preprocess_launches=counts["preprocess"],
+        conv_launches=counts["conv"], conv_halo_launches=sum(halo),
+        salt_fraction=f"{float(masks.mean()):.4f}", card=repr(card))
+    return counts
+
+
+def phase_import(dev, card):
+    """Whole reference checkpoints through the port's converters
+    (``models/torch_import.py``) at full width: the flagship
+    (:func:`_import_flagship`), then LKM-34, PSPNet-34,
+    UNetResNetWithDepth-34, EmptinessClassifier-34 and StackingFCN with
+    and without depth (18 inputs, 32 filters), each from a seeded
+    reference state_dict, grafted, fp32 logits on the card (TF32 off)
+    against the same model on the CPU at rtol=atol=2e-3. Returns the
+    launches of rows 1 and 3."""
+    import copy
+    import torch
+    from salt_tpu_torch.models import torch_import as ti
+    from salt_tpu_torch.models.emptiness import EmptinessClassifier
+    from salt_tpu_torch.models.registry import build_model
+    from salt_tpu_torch.models.stacking import (StackingFCN,
+                                                StackingFCNWithDepth)
+    from salt_tpu_torch.ops.preprocess import preprocess_inference
+
+    t_phase = time.perf_counter()
+    counts = _import_flagship(dev, card)
+    cells = (
+        ("LargeKernelMatters-34", _ref_lkm_sd, ti.convert_lkm,
+         lambda: build_model(_import_config("LargeKernelMatters").model)),
+        ("PSPNet-34", _ref_pspnet_sd, ti.convert_pspnet,
+         lambda: build_model(_import_config("PSPNet").model)),
+        ("UNetResNetWithDepth-34", _ref_depth_sd,
+         ti.convert_unet_resnet_with_depth,
+         lambda: build_model(_import_config("UNetResNetWithDepth").model)),
+        ("EmptinessClassifier-34", _ref_emptiness_sd, ti.convert_emptiness,
+         lambda: EmptinessClassifier(encoder_depth=34)),
+        ("StackingFCN", lambda s: _ref_stacking_sd(s, False),
+         ti.convert_stacking_fcn,
+         lambda: StackingFCN(pad_mode="reference")),
+        ("StackingFCNWithDepth", lambda s: _ref_stacking_sd(s, True),
+         ti.convert_stacking_fcn,
+         lambda: StackingFCNWithDepth(pad_mode="reference")),
+    )
+    images = preprocess_inference(torch.from_numpy(seeded_images(2, seed=3)))
+    images = images.permute(0, 3, 1, 2).contiguous()
+    stacked = torch.rand(2, 18, 128, 128,
+                         generator=torch.Generator().manual_seed(4))
+    depth = torch.tensor([[0.25], [0.8]])
+    for seed, (name, make_sd, convert, make_model) in enumerate(cells, 35):
+        model = _graft(make_model(), convert, make_sd(seed)).eval()
+        x = stacked if name.startswith("Stacking") else images
+        d = depth if model.takes_depth else None
+        with torch.no_grad():
+            cpu = model(x, depth=d)
+            card_model = copy.deepcopy(model).to(
+                dev, memory_format=torch.channels_last)
+            got = card_model(x.to(dev), depth=None if d is None
+                             else d.to(dev)).cpu()
+        torch.testing.assert_close(got, cpu, rtol=2e-3, atol=2e-3)
+        log("import", arch=name, params=sum(p.numel()
+                                            for p in model.parameters()),
+            logits=list(cpu.shape), fp32_vs_cpu=float((got - cpu).abs().max()),
+            logit_scale=float(cpu.abs().max()), card=repr(card))
+    log("import", phase_wall_s=f"{time.perf_counter() - t_phase:.3f}")
+    return counts
+
+
+# -- distill_curve: a teacher, the curve's students, the bench's context -----
+
+#: the teacher's CV and the curve's bundle: 480 synthetic images of the
+#: calibrated "real" difficulty, 2 folds of the teacher, 1 epoch each
+#: (the JAX tool's defaults: 3000 images, 80 epochs; depth only)
+N_DISTILL = 480
+DISTILL_FOLDS = 2
+DISTILL_SEED = 0
+#: the curve's batches (tools/distill_curve.py) and the TTA probe's steps
+#: (train/throughput.py: a warm-up step and 3 windows of 25)
+DISTILL_TRAIN_BATCH, DISTILL_INFER_BATCH = 128, 64
+PROBE_STEPS = 1 + 3 * 25
+
+
+def _int8_sites_of(model):
+    """(wgmma, mma) int8 convs of one infer forward of a scratch net:
+    every ConvBnRelu's conv (stride 1, SAME), on the path
+    ``ops/int8_conv.py::conv_path`` gives its weight's shape."""
+    from salt_tpu_torch.ops.int8_conv import conv_path
+    paths = [conv_path((1, m.Conv_0.weight.shape[1], 8, 8),
+                       tuple(m.Conv_0.weight.shape), 1, 1, 1)
+             for m in model.modules() if type(m).__name__ == "ConvBnRelu"]
+    return paths.count("wgmma"), paths.count("mma")
+
+
+def _distill_teacher(teacher, card):
+    """``cli train-evaluate-predict-cv`` of the flagship (bf16, hflip TTA,
+    row 3 "on") on N_DISTILL synthetic images of the "real" difficulty:
+    its out-of-fold predictions are the students' soft targets."""
+    n_valid = N_DISTILL // DISTILL_FOLDS
+    n_test = max(N_DISTILL // 4, 8)
+    val_b = math.ceil(n_valid / SERVE_BATCH)
+    test_b = math.ceil(n_test / SERVE_BATCH)
+    steps = (N_DISTILL - n_valid) // TRAIN_BATCH
+    want = dict(conv=CONV_KERNEL_PER_FORWARD * DISTILL_FOLDS
+                * (2 * val_b + test_b),
+                preprocess=DISTILL_FOLDS * (3 * val_b + test_b),
+                sort=DISTILL_FOLDS * (steps + val_b))
+    wall, counts = _fs_command(
+        ["train-evaluate-predict-cv", "--synthetic", str(N_DISTILL),
+         "--synthetic-difficulty", "real", "--epochs", "1",
+         "--set", f"execution.seed={DISTILL_SEED}",
+         "--set", f"paths.experiment_dir={teacher}",
+         "--set", "postpro.use_tta=true", "--set", "model.pallas_conv=on",
+         "--set", f"execution.n_cv_splits={DISTILL_FOLDS}",
+         "--set", f"training.batch_size_train={TRAIN_BATCH}",
+         "--set", f"training.batch_size_inference={SERVE_BATCH}"],
+        want, "train-evaluate-predict-cv", card, phase="distill_teacher")
+    with open(os.path.join(teacher, "cv_scores.json")) as f:
+        scores = json.load(f)
+    log("distill_teacher", images=N_DISTILL, folds=DISTILL_FOLDS,
+        difficulty="real", wall_s=f"{wall:.3f}",
+        fold_iout=[round(v, 5) for v in scores["fold_iout"]], **counts,
+        card=repr(card))
+    return counts
+
+
+def phase_distill_curve(dev, card, bar):
+    """``python -m salt_tpu_torch.tools.distill_curve`` as a user runs it
+    (its ``main``, in this process): a teacher (:func:`_distill_teacher`),
+    then each of the five students at the tool's widths and batches (128
+    train, 64 inference) for 1 epoch with the TTA probe, one student a
+    call so that each one's launches of rows 1, 2, 8 and 9 are held
+    against its configuration's (rows 8 and 9 from ``saltunet32_int8``
+    alone, row 3 from none); a last call gathers the curve from the
+    reports. Then the bench's ``emit_distill_context`` (``bar``: this
+    run's ``flagship_tta_int8`` images/s) and ``measure_serve_student``
+    (``serve --synthetic 2048`` of the newest student, int8, batch 64).
+    Returns the launches."""
+    import torch
+    from salt_tpu_torch.core.config import load_config
+    from salt_tpu_torch.models.registry import build_model
+    from salt_tpu_torch.tools import bench
+    from salt_tpu_torch.tools import distill_curve as dc
+
+    t_phase = time.perf_counter()
+    total = dict(preprocess=0, sort=0, conv=0, **_int8_want(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        teacher = os.path.join(tmp, "teacher")
+        for k, v in _distill_teacher(teacher, card).items():
+            total[k] += v
+        argv = ["--teacher", teacher, "--n-images", str(N_DISTILL),
+                "--epochs", "1", "--seed", str(DISTILL_SEED)]
+        for name, sets in dc.STUDENTS.items():
+            _fs_reset()
+            _int8_reset()
+            t0 = time.perf_counter()
+            dc.main(argv + ["--students", name])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(_fs_counts(), **_int8_counts())
+            with open(os.path.join(dc.student_dir(teacher, name),
+                                   "distill_report.json")) as f:
+                rep = json.load(f)
+            steps = rep["n_train"] // DISTILL_TRAIN_BATCH
+            val_b = math.ceil(rep["n_valid"] / DISTILL_INFER_BATCH)
+            # fit's validation (predict + loss), the report's TTA predict,
+            # the probe; every infer forward quantizes for int8
+            forwards = 2 * val_b + PROBE_STEPS
+            want = dict(preprocess=3 * val_b + PROBE_STEPS,
+                        sort=steps + val_b, conv=0, **_int8_want(0))
+            if sets.get("model.quant_bits") == 8:
+                cfg = load_config(None, {**sets, "training.dtype":
+                                         "bfloat16"})
+                wgmma, mma = _int8_sites_of(build_model(cfg.model))
+                want.update(int8_conv=(wgmma + mma) * forwards,
+                            int8_wgmma=wgmma * forwards,
+                            int8_mma=mma * forwards,
+                            int8_quant=2 * (wgmma + mma) * forwards)
+            if counts != want:
+                raise AssertionError(f"distill_curve {name}: launches "
+                                     f"{counts}, expected {want}")
+            ips = rep["student_tta_images_per_sec"]
+            log("distill_student", student=name, wall_s=f"{wall:.3f}",
+                n_train=rep["n_train"], n_valid=rep["n_valid"], epochs=1,
+                tta_images_per_s=ips,
+                vs_flagship_tta_int8=f"{ips / bar:.4f}",
+                student_iout=f"{rep['student_iout']:.5f}",
+                teacher_iout=f"{rep['teacher_iout']:.5f}",
+                iout_delta=f"{rep['iout_delta']:+.5f}",
+                quality="none: 1 epoch on 480 images, a check of the path",
+                **counts, card=repr(card))
+            for k in total:
+                total[k] += counts[k]
+        _fs_reset()
+        _int8_reset()
+        curve = dc.main(argv)               # every report on disk: no run
+        if (list(curve["students"]) != list(dc.STUDENTS)
+                or any(_fs_counts().values())
+                or any(_int8_counts().values())):
+            raise AssertionError(f"distill_curve gather: {curve}")
+        context = bench.emit_distill_context(tmp, bar)
+        if set(context) != {f"distill_{n}" for n in dc.STUDENTS}:
+            raise AssertionError(f"bench distill context: {context}")
+        qualified = bench.qualified_student_fields(context, bar)
+        _fs_reset()
+        _int8_reset()
+        served = bench.measure_serve_student(
+            bench.bench_config(False, quant_bits=8), tmp, dev)
+        counts = dict(_fs_counts(), **_int8_counts())
+        newest = max(dc.STUDENTS, key=lambda n: os.path.getmtime(
+            os.path.join(dc.student_dir(teacher, n), "distill_report.json")))
+    forwards = counts["preprocess"]
+    if (served["student"] != f"distill_{newest}"
+            or served["quant_bits"] != 8 or forwards == 0
+            or counts["int8_conv"] % forwards or counts["int8_conv"] == 0
+            or counts["int8_quant"] != 2 * counts["int8_conv"]
+            or counts["sort"] or counts["conv"]):
+        raise AssertionError(f"bench serve_student: {served}, launches "
+                             f"{counts}")
+    log("distill_bench", students=len(context), bar_flagship_tta_int8=bar,
+        qualified=qualified or None, serve_student=served["student"],
+        serve_student_architecture=served["architecture"],
+        serve_student_images_per_s=served["value"],
+        serve_student_quant_bits=served["quant_bits"],
+        serve_student_seconds=f"{served['seconds']:.3f}",
+        int8_convs_per_forward=counts["int8_conv"] // forwards, **counts,
+        card=repr(card))
+    for k in total:
+        total[k] += counts[k]
+    log("distill_curve", phase_wall_s=f"{time.perf_counter() - t_phase:.3f}",
+        **{f"{k}_launches": v for k, v in total.items()}, card=repr(card))
+    return total
+
+
 def main():
     try:
         import torch
@@ -3797,9 +4460,11 @@ def main():
     phase_losses(dev)
     arch = phase_arch(dev, smi)
     arch2 = phase_arch2(dev, smi)
+    imported = phase_import(dev, smi)
     full = phase_full_solution(dev, smi)
     int8_wgmma, int8_conv, int8_quant, int8 = phase_int8(dev, smi)
-    bench_counts = phase_bench(smi)
+    bench_counts, bar = phase_bench(smi)
+    distill = phase_distill_curve(dev, smi, bar)
     preprocess["launches"] = (serve_preprocess + train_preprocess
                               + cv_on["preprocess"] + cv_off["preprocess"]
                               + cv_int8["preprocess"]
@@ -3809,21 +4474,27 @@ def main():
                               + arch["preprocess"] + arch2["preprocess"]
                               + full["preprocess"] + int8["preprocess"]
                               + fold_parallel["preprocess"]
-                              + tooling["preprocess"])
+                              + tooling["preprocess"]
+                              + imported["preprocess"]
+                              + distill["preprocess"])
     sort["launches"] = (train_sort + cv_on["sort"] + meta["sort"]
                         + salt_unet["sort"] + bench_counts["sort"]
                         + arch["sort"] + arch2["sort"] + full["sort"]
-                        + fold_parallel["sort"] + tooling["sort"] + dp_sort)
+                        + fold_parallel["sort"] + tooling["sort"] + dp_sort
+                        + distill["sort"])
     conv["launches"] = (serve_conv + cv_on["conv"] + ab_launches
                         + arch["conv"] + arch2["conv"] + full["conv"]
                         + int8["conv"] + fold_parallel["conv"]
-                        + tooling["conv"])
+                        + tooling["conv"] + imported["conv"]
+                        + distill["conv"])
     int8_wgmma["launches"] = (int8["int8_wgmma"] + cv_int8["int8_wgmma"]
-                              + bench_counts["int8_wgmma"])
+                              + bench_counts["int8_wgmma"]
+                              + distill["int8_wgmma"])
     int8_conv["launches"] = (int8["int8_mma"] + cv_int8["int8_mma"]
-                             + bench_counts["int8_mma"])
+                             + bench_counts["int8_mma"] + distill["int8_mma"])
     int8_quant["launches"] = (int8["int8_quant"] + cv_int8["int8_quant"]
-                              + bench_counts["int8_quant"])
+                              + bench_counts["int8_quant"]
+                              + distill["int8_quant"])
     for key, count in probe_launches.items():
         probes[key]["launches"] = count
     log("launches", preprocess_serve=serve_preprocess,
@@ -3839,7 +4510,14 @@ def main():
         preprocess_full_solution=full["preprocess"],
         preprocess_int8=int8["preprocess"],
         preprocess_fold_parallel=fold_parallel["preprocess"],
-        preprocess_tooling=tooling["preprocess"], sort_train=train_sort,
+        preprocess_tooling=tooling["preprocess"],
+        preprocess_import=imported["preprocess"],
+        preprocess_distill_curve=distill["preprocess"],
+        sort_distill_curve=distill["sort"], conv_import=imported["conv"],
+        conv_distill_curve=distill["conv"],
+        int8_conv_wgmma_distill_curve=distill["int8_wgmma"],
+        int8_conv_distill_curve=distill["int8_mma"],
+        int8_quant_distill_curve=distill["int8_quant"], sort_train=train_sort,
         sort_fold_parallel=fold_parallel["sort"],
         sort_tooling=tooling["sort"], sort_data_parallel=dp_sort,
         conv_fold_parallel=fold_parallel["conv"],

@@ -25,7 +25,9 @@ under the same name:
                                LargeKernelMatters, PSPNet, the stacking heads,
                                the emptiness classifier, the int8 convs of
                                ``model.quant_bits``, the flax-checkpoint
-                               bridge and the pretrained encoder import
+                               bridge, and the import of pretrained
+                               encoders and of whole reference models
+                               from torch checkpoints
 - ``salt_tpu_torch.train``     ``SegmentationRunner`` (train, eval and predict
                                steps) and its classifier, stacking and
                                distillation runners, train state, callbacks,
@@ -35,8 +37,8 @@ under the same name:
                                stacking CVs, ``full-solution``, ensembling,
                                distillation, the analysis and preview
                                reports
-- ``salt_tpu_torch.tools``     the probes, A/Bs, the bench and the profiler
-                               reading
+- ``salt_tpu_torch.tools``     the probes, A/Bs, the bench, the
+                               distillation curve and the profiler reading
 
 The package imports torch, numpy, pandas, PIL and yaml, never jax, flax or
 anything of ``salt_tpu``. Entry points run on ``device="cuda"`` unless the

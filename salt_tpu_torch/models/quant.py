@@ -19,9 +19,11 @@ U-Nets and the depth net, which is the JAX package's route
 (``salt_tpu/models/registry.py:35-52``): the encoders' convs
 (``salt_tpu/models/encoders.py``), the ConvBnRelu and sliced-concat
 convs of the center, the decoders and ``final_conv`` (each branch of a
-sliced-concat sum quantized on its own, with its slice of the weight).
-The SE gates, the dense layers and the fp32 heads stay in full
-precision. The train form never quantizes.
+sliced-concat sum quantized on its own, with its slice of the weight);
+and, beyond the JAX package's route, every ConvBnRelu conv of the
+scratch nets (``models/salt_unet.py``). The SE gates, the dense layers
+and the fp32 heads stay in full precision. The train form never
+quantizes.
 """
 from __future__ import annotations
 

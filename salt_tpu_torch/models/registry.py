@@ -12,8 +12,11 @@ with the arguments and ``encoder_depth`` coercions of JAX's build
 functions (:55-158). ``model.pallas_conv`` and ``model.quant_bits``
 select the infer form's conv callable (:func:`infer_conv_fn`, the
 counterpart of ``_conv_fn``, ``salt_tpu/models/registry.py:35-52``); it
-reaches the U-Nets and the depth net only, as the JAX package hands the
-other architectures no conv callable. The depth model takes no
+reaches the U-Nets and the depth net, as in the JAX package, which hands
+the other architectures no conv callable. The port also hands the
+scratch nets (``SaltUNet``, ``SaltLinkNet``) the int8 convs of
+``model.quant_bits=8``, where the JAX package leaves them in full
+precision (``models/salt_unet.py``). The depth model takes no
 ``pool0``, ``hypercolumn_impl`` or ``decoder_impl``, as its JAX build
 function passes none.
 """
@@ -86,21 +89,29 @@ def _emptiness(cfg: ModelConfig) -> nn.Module:
                                encoder_depth=18)
 
 
+def _scratch_conv(cfg: ModelConfig):
+    """The scratch nets' infer conv: the int8 convs, or ``F.conv2d``."""
+    return make_quant_conv_fn(cfg.quant_bits) or F.conv2d
+
+
 def _salt_unet(cfg: ModelConfig) -> nn.Module:
     from salt_tpu_torch.models.salt_unet import SaltUNet
     return SaltUNet(num_classes=cfg.num_classes, n_filters=cfg.n_filters,
                     conv_kernel=cfg.conv_kernel,
                     repeat_blocks=cfg.repeat_blocks,
-                    dropout_2d=cfg.dropout_2d)
+                    dropout_2d=cfg.dropout_2d,
+                    infer_conv=_scratch_conv(cfg))
 
 
 def _salt_linknet(cfg: ModelConfig) -> nn.Module:
     from salt_tpu_torch.models.salt_unet import SaltLinkNet
     return SaltLinkNet(num_classes=cfg.num_classes, n_filters=cfg.n_filters,
-                       repeat_blocks=cfg.repeat_blocks)
+                       repeat_blocks=cfg.repeat_blocks,
+                       infer_conv=_scratch_conv(cfg))
 
 
-#: the architectures that take no conv callable, by their build functions
+#: the architectures whose build functions take no ``infer_conv_fn`` (the
+#: scratch nets take the int8 convs alone)
 _OTHERS = {"SaltUNet": _salt_unet, "SaltLinkNet": _salt_linknet,
            "LargeKernelMatters": _lkm, "PSPNet": _pspnet,
            "StackingFCN": _stacking, "StackingFCNWithDepth": _stacking,

@@ -11,9 +11,15 @@ head (``Conv_0``) and the logits are fp32.
 
 Submodule names are the flax auto-names (``ConvBnRelu_0``, ...,
 ``DecoderBlock_0``, ..., ``Conv_0``), so ``models.convert`` maps a
-checkpoint of either package. The JAX package hands these nets no conv
-callable, so ``model.pallas_conv`` does not reach them, and they have no
-sliced-concat sum forms: their infer form is their train form.
+checkpoint of either package. They have no sliced-concat sum forms, and
+``model.pallas_conv`` does not reach them, as in the JAX package. Their
+infer form is their train form but for ``infer_conv``, the conv of every
+ConvBnRelu with ``model.quant_bits=8`` (the int8 convs; the SE gates and
+the fp32 head stay in full precision). Here the port parts from the JAX
+package, whose registry hands these nets no conv callable, so that its
+``quant_bits=8`` leaves them in full precision: the distillation curve's
+``saltunet32_int8`` student (``tools/distill_curve.py``) is served int8
+as that tool means it to be.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from salt_tpu_torch.models.blocks import (ConvBnRelu, DecoderBlock,
+from salt_tpu_torch.models.blocks import (Conv, ConvBnRelu, DecoderBlock,
                                           Fp32HeadNet, upsample2x)
 
 
@@ -35,6 +41,11 @@ def level_widths(n_filters: int, repeat_blocks: int) -> List[int]:
 
 class _ScratchNet(Fp32HeadNet):
     head_name = "Conv_0"
+
+    def __init__(self, dropout_2d: float = 0.0,
+                 infer_conv: Conv = F.conv2d):
+        super().__init__(dropout_2d)
+        self.infer_conv = infer_conv
 
     def _add_convs(self, start: int, widths_in_out, kernel_size: int,
                    use_batch_norm: bool) -> None:
@@ -51,8 +62,9 @@ class _ScratchNet(Fp32HeadNet):
 class SaltUNet(_ScratchNet):
     def __init__(self, num_classes: int = 2, n_filters: int = 16,
                  conv_kernel: int = 3, repeat_blocks: int = 4,
-                 use_batch_norm: bool = True, dropout_2d: float = 0.0):
-        super().__init__(dropout_2d)
+                 use_batch_norm: bool = True, dropout_2d: float = 0.0,
+                 infer_conv: Conv = F.conv2d):
+        super().__init__(dropout_2d, infer_conv)
         widths = level_widths(n_filters, repeat_blocks)
         pairs, c = [], 3
         for w in widths:
@@ -68,22 +80,25 @@ class SaltUNet(_ScratchNet):
 
     def _trunk(self, x: torch.Tensor, generator: Optional[torch.Generator],
                infer: bool) -> torch.Tensor:
+        conv = self.infer_conv if infer else F.conv2d
         skips = []
-        for level in range(self.n_levels):
-            x = self._conv(2 * level + 1)(self._conv(2 * level)(x))
-            skips.append(x)
-            x = F.max_pool2d(x, 2, stride=2)
-        x = self._conv(2 * self.n_levels + 1)(self._conv(2 * self.n_levels)(x))
+        for level in range(self.n_levels + 1):
+            x = self._conv(2 * level + 1)(self._conv(2 * level)(x, conv),
+                                          conv)
+            if level < self.n_levels:
+                skips.append(x)
+                x = F.max_pool2d(x, 2, stride=2)
         x = self._channel_dropout(x, generator)
         for j, skip in enumerate(reversed(skips)):
-            x = getattr(self, f"DecoderBlock_{j}")(x, skip)
+            x = getattr(self, f"DecoderBlock_{j}")(x, skip, conv)
         return x
 
 
 class SaltLinkNet(_ScratchNet):
     def __init__(self, num_classes: int = 2, n_filters: int = 16,
-                 repeat_blocks: int = 4, use_batch_norm: bool = True):
-        super().__init__()
+                 repeat_blocks: int = 4, use_batch_norm: bool = True,
+                 infer_conv: Conv = F.conv2d):
+        super().__init__(infer_conv=infer_conv)
         widths = level_widths(n_filters, repeat_blocks)
         ins = [3] + widths[:-1]
         down = list(zip(ins, widths))
@@ -94,13 +109,14 @@ class SaltLinkNet(_ScratchNet):
 
     def _trunk(self, x: torch.Tensor, generator: Optional[torch.Generator],
                infer: bool) -> torch.Tensor:
+        conv = self.infer_conv if infer else F.conv2d
         skips = []
         for level in range(self.n_levels):
-            x = self._conv(level)(x)
+            x = self._conv(level)(x, conv)
             skips.append(x)
             x = F.max_pool2d(x, 2, stride=2)
-        x = self._conv(self.n_levels)(x)
+        x = self._conv(self.n_levels)(x, conv)
         for j, skip in enumerate(reversed(skips)):
-            x = self._conv(self.n_levels + 1 + j)(upsample2x(x))
+            x = self._conv(self.n_levels + 1 + j)(upsample2x(x), conv)
             x = x + skip.to(x.dtype)
         return x

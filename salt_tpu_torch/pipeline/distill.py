@@ -55,6 +55,17 @@ def load_teacher_probs(teacher_dir: str, ids) -> np.ndarray:
     return np.clip(probs.astype(np.float32), 0.0, 1.0)
 
 
+def _measure_student_throughput(runner, model) -> float:
+    """The student's sustained hflip-TTA images/s on its device at the
+    inference batch, with the bench's probe (``train/throughput.py``:
+    inputs staged on the device, chained steps, one synchronization a
+    window); serve's end-to-end rate, host preparation and copies
+    included, is another metric."""
+    from salt_tpu_torch.train.throughput import measure_tta_throughput
+    return measure_tta_throughput(
+        runner, model, runner.config.training.batch_size_inference)
+
+
 def distill(config: Config, experiment: Experiment, bundle: DataBundle,
             teacher_dir: str, measure_throughput: bool = False,
             test_bundle: Optional[DataBundle] = None,
@@ -106,9 +117,8 @@ def distill(config: Config, experiment: Experiment, bundle: DataBundle,
         "iout_delta": s_iout - t_iout,
     }
     if measure_throughput:
-        from salt_tpu_torch.train.throughput import measure_tta_throughput
-        report["student_tta_images_per_sec"] = measure_tta_throughput(
-            runner, model, config.training.batch_size_inference)
+        report["student_tta_images_per_sec"] = _measure_student_throughput(
+            runner, model)
         logger.info("student TTA throughput: %.1f img/s",
                     report["student_tta_images_per_sec"])
     experiment.save_json("distill_report", report)

@@ -32,8 +32,25 @@
   ``torch.distributed`` group (``parallel/mesh.py``), their rates
   summed; None in one process, as the JAX bench at one chip.
 
-The distilled students are listed under ``not_ported`` with the ROADMAP
-item that ports them.
+- ``distill_<student>``: each student of the newest
+  ``distill_curve.json`` under ``--distill-root`` (default ``output/``
+  of the checkout; ``python -m salt_tpu_torch.tools.distill_curve``
+  writes it) with a measured rate: its TTA images/s, IOUT delta against
+  its teacher, and ``vs_flagship_tta_int8``, its rate over this run's
+  ``flagship_tta_int8`` (bench.py:162-186);
+- ``serve_student``: ``serve --synthetic 2048`` of the newest
+  ``distill_*/distill_report.json``'s student with the int8 serving
+  config, the student's model adopted from its ``config.json``
+  (bench.py:129-159);
+- ``distilled_student*``: the fastest student at or above the bar with
+  an IOUT cost of at most 0.02 (bench.py:189-210). bench.py's bar is
+  ``BASELINE_IMAGES_PER_SEC = 5000``, a target set for a TPU v5e-8
+  (BASELINE.md); the port carries no such constant, and its bar is this
+  run's ``flagship_tta_int8`` rate on the card, so its ratios are
+  ``vs_flagship_tta_int8`` where bench.py's are ``vs_5000_target`` and
+  ``vs_baseline``. With no curve on disk the line has none of these
+  keys. Its numbers are not rounded (bench.py rounds to 1 and 3 or 4
+  places).
 
 Every measurement runs: one that fails fails the run. ``--device``
 defaults to ``cuda`` and raises without a card; ``--device cpu --tiny``
@@ -44,7 +61,9 @@ breakdown is not measured.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import glob
 import json
 import os
 import tempfile
@@ -54,16 +73,14 @@ import torch
 from salt_tpu_torch.core.config import default_config
 from salt_tpu_torch.core.device import resolve_device
 from salt_tpu_torch.ops.sort_kernel import KERNEL_PREFIX
-from salt_tpu_torch.pipeline.serving import serve
+from salt_tpu_torch.pipeline.serving import adopt_checkpoint_config, serve
 from salt_tpu_torch.tools.profiling import card, step_breakdown
 from salt_tpu_torch.train.steps import SegmentationRunner
 from salt_tpu_torch.train.throughput import (measure_tta_throughput,
                                              measure_train_throughput)
 
-NOT_PORTED = {
-    "distill": "not ported: ROADMAP Queue A item 19 (tools/distill_curve.py"
-               ": the distilled students and their serve rate)",
-}
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 #: the hand kernels each profiled step launches
 STEP_KERNELS = {"tta_step": ("preprocess_inference_kernel",),
                 "tta_step_int8": ("preprocess_inference_kernel",
@@ -84,6 +101,9 @@ def parse_args(argv=None):
     ap.add_argument("--train-iters", type=int, default=15,
                     help="train steps per timed window")
     ap.add_argument("--profile-steps", type=int, default=5)
+    ap.add_argument("--distill-root", default=os.path.join(REPO, "output"),
+                    help="where to look for the newest distill curve and "
+                         "student")
     args = ap.parse_args(argv)
     if args.device == "cpu" and not args.tiny:
         ap.error("--device cpu runs only with --tiny (a check of the path, "
@@ -138,6 +158,77 @@ def measure_multichip_dp_tta(cfg, device, single_chip_ips: float,
             "chips": mesh.size, "per_chip": agg / mesh.size,
             "efficiency_pct": agg / (mesh.size * single_chip_ips) * 100,
             "batch": cfg.training.batch_size_inference}
+
+
+def emit_distill_context(root: str, bar: float) -> dict:
+    """``distill_<student>`` records of the newest ``distill_curve.json``
+    under ``root``: each student with a measured TTA rate (a ``--smoke``
+    curve has none), its IOUT against its teacher's, and its rate over
+    ``bar``. Reads files only; {} without a curve."""
+    curves = glob.glob(os.path.join(root, "**", "distill_curve.json"),
+                       recursive=True)
+    if not curves:
+        return {}
+    path = max(curves, key=os.path.getmtime)
+    with open(path) as f:
+        curve = json.load(f)
+    records = {}
+    for name, rep in curve.get("students", {}).items():
+        ips = rep.get("student_tta_images_per_sec")
+        if ips is None:
+            continue
+        records[f"distill_{name}"] = {
+            "value": float(ips), "unit": "images/sec/chip",
+            "iout_delta": float(rep["iout_delta"]),
+            "teacher_iout": float(rep["teacher_iout"]),
+            "student_iout": float(rep["student_iout"]),
+            "vs_flagship_tta_int8": float(ips) / bar, "curve": path}
+    return records
+
+
+def qualified_student_fields(ctx: dict, bar: float,
+                             max_iout_cost: float = 0.02) -> dict:
+    """The fastest ``distill_*`` record of ``ctx`` whose rate reaches
+    ``bar`` at an IOUT cost of at most ``max_iout_cost`` against its
+    teacher, as ``distilled_student*`` keys; {} when none does."""
+    qualified = [(n, c) for n, c in ctx.items()
+                 if n.startswith("distill_") and c["value"] >= bar
+                 and c.get("iout_delta", -1.0) >= -max_iout_cost]
+    if not qualified:
+        return {}
+    name, c = max(qualified, key=lambda kv: kv[1]["value"])
+    return {"distilled_student": name[len("distill_"):],
+            "distilled_student_images_per_sec": c["value"],
+            "distilled_student_iout_delta": c["iout_delta"],
+            "distilled_student_vs_flagship_tta_int8": c["value"] / bar}
+
+
+def measure_serve_student(cfg, root: str, device, n_images: int = 2048):
+    """``serve --synthetic n_images`` of the newest distilled student
+    (``distill_*/distill_report.json`` under ``root``, by modification
+    time) with ``cfg``: serve adopts the student's model from its
+    ``config.json`` (every model field but ``quant_bits``, which stays
+    ``cfg``'s). Its record, or None without a student."""
+    reports = glob.glob(os.path.join(root, "**", "distill_*",
+                                     "distill_report.json"), recursive=True)
+    if not reports:
+        return None
+    path = max(reports, key=os.path.getmtime)
+    exp_dir = os.path.dirname(path)
+    with open(path) as f:
+        rep = json.load(f)
+    cfg_s = adopt_checkpoint_config(copy.deepcopy(cfg), exp_dir)
+    with tempfile.TemporaryDirectory() as tmp:
+        served = serve(cfg_s, exp_dir, "", os.path.join(tmp, "sub.csv"),
+                       synthetic=n_images, device=device)
+    return {"value": served["images_per_sec"], "unit": "images/sec",
+            "student": os.path.basename(exp_dir),
+            "architecture": cfg_s.model.architecture,
+            "quant_bits": cfg_s.model.quant_bits,
+            "iout_delta": float(rep.get("iout_delta", 0.0)),
+            "images": n_images, "seconds": served["seconds"],
+            "note": "upload + forward + mask download, the student's "
+                    "config adopted"}
 
 
 def main(argv=None) -> dict:
@@ -233,7 +324,13 @@ def main(argv=None) -> dict:
     line["multichip_dp_tta"] = measure_multichip_dp_tta(
         cfg, device, line["flagship_tta_bf16"]["value"], args.iters,
         args.windows)
-    line["not_ported"] = NOT_PORTED
+    bar = line["flagship_tta_int8"]["value"]
+    line.update(emit_distill_context(args.distill_root, bar))
+    student = measure_serve_student(cfg_q, args.distill_root, device,
+                                    n_serve)
+    if student is not None:
+        line["serve_student"] = student
+    line.update(qualified_student_fields(line, bar))
     print(json.dumps(line), flush=True)
     return line
 

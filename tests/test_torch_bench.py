@@ -23,13 +23,14 @@ CUDA = torch.autograd.DeviceType.CUDA
 CPU = torch.autograd.DeviceType.CPU
 LINE_KEYS = {"device", "flagship_tta_bf16", "flagship_train",
              "salt_unet16_tta", "serve_synthetic_2048", "breakdown",
-             "flagship_tta_int8", "multichip_dp_tta", "not_ported"}
+             "flagship_tta_int8", "multichip_dp_tta"}
 
 
-def test_bench_line_keys_on_the_cpu(capsys):
+def test_bench_line_keys_on_the_cpu(capsys, tmp_path):
     from salt_tpu_torch.tools import bench
     line = bench.main(["--device", "cpu", "--tiny", "--iters", "1",
-                       "--windows", "1", "--train-iters", "1"])
+                       "--windows", "1", "--train-iters", "1",
+                       "--distill-root", str(tmp_path)])
     import json
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
         == json.loads(json.dumps(line))
@@ -38,8 +39,10 @@ def test_bench_line_keys_on_the_cpu(capsys):
     assert line["flagship_tta_int8"]["quant_bits"] == 8
     assert line["flagship_tta_int8"]["pallas_conv"] == "off"
     assert line["serve_synthetic_2048"]["quant_bits"] == 8
-    assert set(line["not_ported"]) == {"distill"}
-    assert line["not_ported"]["distill"].split("item ")[1][:2] == "19"
+    # the distilled students are ported: no not_ported key, and with no
+    # curve on disk no student context
+    assert "not_ported" not in line
+    assert not [k for k in line if k.startswith(("distill", "serve_student"))]
     assert line["multichip_dp_tta"] is None      # one process
     for key in ("flagship_tta_bf16", "flagship_tta_int8", "flagship_train",
                 "salt_unet16_tta", "serve_synthetic_2048"):
