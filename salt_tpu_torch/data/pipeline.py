@@ -25,9 +25,18 @@ def batch_indices(n: int, batch_size: int, shuffle: bool,
     idx = np.arange(n)
     if shuffle:
         rng.shuffle(idx)
-    end = n - batch_size + 1 if drop_last else n
-    for lo in range(0, max(end, 0), batch_size):
+    for lo in _starts(n, batch_size, drop_last):
         yield idx[lo:lo + batch_size]
+
+
+def batch_count(n: int, batch_size: int, drop_last: bool = True) -> int:
+    """How many batches :func:`batch_indices` yields."""
+    return len(_starts(n, batch_size, drop_last))
+
+
+def _starts(n: int, batch_size: int, drop_last: bool) -> range:
+    end = n - batch_size + 1 if drop_last else n
+    return range(0, max(end, 0), batch_size)
 
 
 def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:

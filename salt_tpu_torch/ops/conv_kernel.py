@@ -14,22 +14,23 @@ Counterpart of ``salt_tpu/ops/pallas_conv.py::conv3x3_pair`` (:66-178):
 
 The weight is repacked from OIHW to the kernel's [64, 3, 3, C]
 (``ops.conv_pair.pack_weight``) with one torch copy on every call (73.7 KB
-at C = 64), under the profiler range :data:`REPACK_RANGE` so that a trace
-shows the route's whole device cost.
+at C = 64), in the span :data:`REPACK_RANGE` (``core/tracing.py``), whose
+profiler range lets a trace show the route's whole device cost.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
+from salt_tpu_torch.core.tracing import span
 from salt_tpu_torch.ops import build, costs
 from salt_tpu_torch.ops.conv_pair import FEATURES, conv3x3_pair, pack_weight
 
 #: kernel launches since the last reset (set it to 0 to reset)
 launches = 0
-#: the ``torch.profiler`` range around the weight repack of every launch
+#: the span (and ``torch.profiler`` range) around the weight repack of
+#: every launch
 REPACK_RANGE = "conv3x3_pair.repack"
 
 
@@ -75,10 +76,7 @@ def conv3x3_pair_kernel(x: torch.Tensor, w: torch.Tensor,
                       device=x.device, memory_format=torch.channels_last)
     if b == 0:
         return out
-    # the range costs host time on every call, so only under a profiler
-    with (torch.profiler.record_function(REPACK_RANGE)
-          if torch.autograd.profiler._is_profiler_enabled
-          else contextlib.nullcontext()):
+    with span(REPACK_RANGE):
         w_packed = pack_weight(w)
     fn = build.function("conv3x3_pair", "salt_conv3x3_pair", _ARGTYPES)
     with torch.cuda.device(x.device):

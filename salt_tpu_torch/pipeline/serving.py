@@ -43,6 +43,7 @@ import torch
 from salt_tpu_torch.core.config import Config
 from salt_tpu_torch.core.device import resolve_device
 from salt_tpu_torch.core.logging import get_logger
+from salt_tpu_torch.core import tracing
 
 logger = get_logger()
 
@@ -126,15 +127,17 @@ def decode_images(paths: Sequence[str], h: int = 101, w: int = 101
     """PNGs -> packed [N, h, w] uint8 (native decoder, PIL otherwise;
     RGB(A) collapses to channel 0, TGS images being gray stored as RGB)."""
     from salt_tpu_torch.data.native_png import pack_pngs
-    images = pack_pngs(list(paths), h, w)
-    if images is None:
-        from PIL import Image
+    with tracing.span("serve.decode") as stage:
+        images = pack_pngs(list(paths), h, w)
+        stage.set(decoder="pil" if images is None else "native")
+        if images is None:
+            from PIL import Image
 
-        def gray(p):
-            img = np.array(Image.open(p))
-            return img if img.ndim == 2 else img[..., 0]
+            def gray(p):
+                img = np.array(Image.open(p))
+                return img if img.ndim == 2 else img[..., 0]
 
-        images = np.stack([gray(p) for p in paths]).astype(np.uint8)
+            images = np.stack([gray(p) for p in paths]).astype(np.uint8)
     return images
 
 
@@ -200,7 +203,24 @@ def serve(config: Config, checkpoint: str, images_dir: str,
     models over the timed loop's seconds, ``batches`` the forward batches
     of the timed loop (batches x models), ``warmup_batches`` those of the
     untimed warm-up. ``synthetic`` > 0 serves that many generated images
-    and ignores ``images_dir``; only then may ``checkpoint`` be empty."""
+    and ignores ``images_dir``; only then may ``checkpoint`` be empty.
+
+    Traced (``core/tracing.py``) as the root span ``serve`` (attributes
+    ``images``, ``folds``) over the stages ``serve.restore`` (a fold),
+    ``serve.decode`` (a chunk; attribute ``decoder``), ``serve.upload``,
+    ``serve.forward`` (a fold on a chunk), ``serve.download``,
+    ``serve.submission`` and ``serve.provenance``, and ``serve.warmup``
+    where a small dataset warms up; the counter ``serve.forwards`` counts
+    the forward batches of ``batches``."""
+    with tracing.span("serve") as root:
+        return _serve(root, config, checkpoint, images_dir, out_csv,
+                      probs_out, synthetic, chunk_size, synthetic_difficulty,
+                      user_set, device)
+
+
+def _serve(root, config, checkpoint, images_dir, out_csv, probs_out,
+           synthetic, chunk_size, synthetic_difficulty, user_set,
+           device) -> dict:
     from salt_tpu_torch.ops.rle import create_submission
     from salt_tpu_torch.train.steps import SegmentationRunner, pad_batch
 
@@ -228,11 +248,15 @@ def serve(config: Config, checkpoint: str, images_dir: str,
 
     runner = SegmentationRunner(config, dev)
     if ckpts:
-        models = [runner.restore(c) for c in ckpts]     # on the device, once
+        models = []
+        for c in ckpts:
+            with tracing.span("serve.restore"):
+                models.append(runner.restore(c))    # on the device, once
     else:
         # the JAX package serves its runner's seeded initial state
         models = [runner.place(runner.init_state(config.execution.seed).model)]
     n_models = len(models)
+    root.set(images=len(ids), folds=n_models)
     step = (runner.predict_tta_step if config.postpro.use_tta
             else runner.predict_step)
     thresh = float(config.postpro.threshold_masks)
@@ -260,20 +284,25 @@ def serve(config: Config, checkpoint: str, images_dir: str,
 
     def prepare(imgs: np.ndarray) -> torch.Tensor:
         """Zero images up to a batch multiple, one upload."""
-        return torch.from_numpy(pad_batch(imgs, bs)).to(dev)
+        with tracing.span("serve.upload"):
+            return torch.from_numpy(pad_batch(imgs, bs)).to(dev)
 
     counts = {"batches": 0, "warmup_batches": 0}
 
     def run_chunk(count: int, imgs: np.ndarray):
         imgs_d = prepare(imgs)
         acc = None
-        for model in models:
-            p = run_model(model, imgs_d)
-            acc = p if acc is None else acc + p
-        counts["batches"] += n_models * imgs_d.shape[0] // bs
-        mean = acc[:count] / n_models                  # fp32 fold mean
-        masks = (mean > thresh).to(torch.uint8).cpu().numpy()
-        p16 = mean.half().cpu().numpy() if probs_out else None
+        for fold, model in enumerate(models):
+            with tracing.span("serve.forward", fold=fold):
+                p = run_model(model, imgs_d)
+                acc = p if acc is None else acc + p
+        forwards = n_models * imgs_d.shape[0] // bs
+        counts["batches"] += forwards
+        tracing.count("serve.forwards", forwards)
+        with tracing.span("serve.download"):
+            mean = acc[:count] / n_models                  # fp32 fold mean
+            masks = (mean > thresh).to(torch.uint8).cpu().numpy()
+            p16 = mean.half().cpu().numpy() if probs_out else None
         return masks, p16
 
     gen = chunks()
@@ -284,11 +313,12 @@ def serve(config: Config, checkpoint: str, images_dir: str,
         # library, the allocator), then discard the device arrays: the
         # timed loop re-runs the upload for the first chunk so the timed
         # window covers host prep + transfer + compute for every chunk.
-        first = next(gen)
-        imgs_w = prepare(first[1])
-        run_model(models[0], imgs_w)[0, 0, 0].item()
-        counts["warmup_batches"] = imgs_w.shape[0] // bs
-        del imgs_w
+        with tracing.span("serve.warmup"):
+            first = next(gen)
+            imgs_w = prepare(first[1])
+            run_model(models[0], imgs_w)[0, 0, 0].item()
+            counts["warmup_batches"] = imgs_w.shape[0] // bs
+            del imgs_w
 
     t0 = time.perf_counter()
     mask_parts = []
@@ -309,8 +339,10 @@ def serve(config: Config, checkpoint: str, images_dir: str,
     dt = time.perf_counter() - t0
     ips = n * n_models / dt
 
-    submission = create_submission(pd.DataFrame({"id": ids}), list(masks))
-    submission.to_csv(out_csv, index=None, encoding="utf-8")
+    with tracing.span("serve.submission"):
+        submission = create_submission(pd.DataFrame({"id": ids}),
+                                       list(masks))
+        submission.to_csv(out_csv, index=None, encoding="utf-8")
     if prob_writer is not None:
         prob_writer.close()
     logger.info("served %d images at %.0f img/s -> %s", n, ips, out_csv)
@@ -320,6 +352,7 @@ def serve(config: Config, checkpoint: str, images_dir: str,
         result["probs_out"] = prob_writer.path
     if config.model.quant_bits and ckpts:
         from salt_tpu_torch.pipeline.quality import write_serve_provenance
-        result["int8_provenance"] = write_serve_provenance(
-            out_csv, ckpts, config.model.quant_bits, checkpoint)
+        with tracing.span("serve.provenance"):
+            result["int8_provenance"] = write_serve_provenance(
+                out_csv, ckpts, config.model.quant_bits, checkpoint)
     return result

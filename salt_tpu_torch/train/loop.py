@@ -17,6 +17,11 @@ threshold sweep (counterpart of ``salt_tpu/train/loop.py`` :36-192).
 - Validation scores every image at all 21 sweep thresholds in one pass
   per batch and replays the reference's greedy selection on the [21]
   vector (reference: callbacks.py:503-513).
+- Traced (``core/tracing.py``) as the root span ``fit`` over ``fit.epoch``
+  spans; each holds a ``fit.step`` a batch (``fit.feed``, the runner's
+  ``fit.augment``, ``fit.forward``, ``fit.backward`` and
+  ``fit.optimizer``, then ``fit.loss_read`` and ``fit.callbacks``) and
+  the epoch's ``fit.validate``.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ import numpy as np
 import torch
 
 from salt_tpu_torch.core.logging import get_logger
-from salt_tpu_torch.data.pipeline import batch_indices, prefetch_to_device
+from salt_tpu_torch.core.tracing import span
+from salt_tpu_torch.data.pipeline import (batch_count, batch_indices,
+                                          prefetch_to_device)
 from salt_tpu_torch.train.callbacks import CallbackList
 from salt_tpu_torch.train.state import TrainState
 from salt_tpu_torch.train.steps import (SWEEP_THRESHOLDS, SegmentationRunner,
@@ -116,6 +123,13 @@ def fit(runner: SegmentationRunner,
     [N, 101, 101, M] cubes); the train masks are uint8, or the targets
     its ``train_step`` takes (``DistillRunner``: uint16 packs); the
     validation masks are uint8."""
+    with span("fit"):
+        return _fit(runner, train_data, valid_data, callbacks, state, epochs,
+                    seed, start_epoch)
+
+
+def _fit(runner, train_data, valid_data, callbacks, state, epochs, seed,
+         start_epoch) -> Tuple[TrainState, list]:
     cfg = runner.config
     images, masks, depths = (*train_data, None)[:3]
     bs = min(cfg.training.batch_size_train, images.shape[0])
@@ -137,50 +151,61 @@ def fit(runner: SegmentationRunner,
         state.with_learning_rate(ctx.pop("force_learning_rate"))
 
     for epoch_id in range(start_epoch, epochs):
-        ctx["epoch_id"] = epoch_id
-        # only FRESH validation results reach the callbacks
-        ctx.pop("validation", None)
-        callbacks.on_epoch_begin(ctx)
-        epoch_losses = []
+        with span("fit.epoch", epoch=epoch_id):
+            ctx["epoch_id"] = epoch_id
+            # only FRESH validation results reach the callbacks
+            ctx.pop("validation", None)
+            callbacks.on_epoch_begin(ctx)
+            epoch_losses = []
 
-        def host_batches():
-            for idx in batch_indices(images.shape[0], bs,
-                                     cfg.execution.shuffle, host_rng):
-                d = _depth_batch(runner, depths, idx, len(idx))
-                yield (images[idx], masks[idx]) + (() if d is None else (d,))
+            def host_batches():
+                for idx in batch_indices(images.shape[0], bs,
+                                         cfg.execution.shuffle, host_rng):
+                    d = _depth_batch(runner, depths, idx, len(idx))
+                    yield ((images[idx], masks[idx])
+                           + (() if d is None else (d,)))
 
-        for batch_id, (img_d, msk_d, *d_d) in enumerate(
-                prefetch_to_device(host_batches(), runner.device_batch)):
-            generator.manual_seed(step_seed(seed, epoch_id, batch_id))
-            loss = runner.train_step(state, img_d, msk_d, generator, *d_d)
-            epoch_losses.append(float(loss))
-            ctx.update(state=state, batch_id=batch_id,
-                       batch_loss=epoch_losses[-1])
-            callbacks.on_batch_end(ctx)
-            if "force_learning_rate" in ctx:
-                state.with_learning_rate(ctx.pop("force_learning_rate"))
-        ctx["train_loss"] = (float(np.mean(epoch_losses))
-                             if epoch_losses else None)
+            feed = prefetch_to_device(host_batches(), runner.device_batch)
+            for batch_id in range(batch_count(images.shape[0], bs)):
+                with span("fit.step"):
+                    with span("fit.feed"):
+                        img_d, msk_d, *d_d = next(feed)
+                    generator.manual_seed(step_seed(seed, epoch_id, batch_id))
+                    loss = runner.train_step(state, img_d, msk_d, generator,
+                                             *d_d)
+                    with span("fit.loss_read"):
+                        epoch_losses.append(float(loss))
+                    ctx.update(state=state, batch_id=batch_id,
+                               batch_loss=epoch_losses[-1])
+                    with span("fit.callbacks"):
+                        callbacks.on_batch_end(ctx)
+                    if "force_learning_rate" in ctx:
+                        state.with_learning_rate(
+                            ctx.pop("force_learning_rate"))
+            ctx["train_loss"] = (float(np.mean(epoch_losses))
+                                 if epoch_losses else None)
 
-        if valid_data is not None and (
-                epoch_id % cfg.training.validate_every_n_epochs == 0):
-            val = validate(runner, state, *valid_data)
-            ctx["validation"] = val
-            logger.info("epoch %d validation sum: %.5f iou: %.5f iout: %.5f "
-                        "(threshold %.2f)", epoch_id, val["sum"], val["iou"],
-                        val["iout"], val["threshold"])
-        callbacks.on_epoch_end(ctx)
-        history.append({"epoch": epoch_id,
-                        "train_loss": ctx.get("train_loss"),
-                        **{f"val_{k}": v for k, v in
-                           (ctx.get("validation") or {}).items()}})
-        new_lr = callbacks.new_learning_rate(ctx)
-        if new_lr is not None:
-            state.with_learning_rate(new_lr)
-            ctx["learning_rate"] = new_lr
-        if callbacks.training_break(ctx):
-            logger.info("early stopping at epoch %d", epoch_id)
-            ctx["early_stopped"] = True
-            break
+            if valid_data is not None and (
+                    epoch_id % cfg.training.validate_every_n_epochs == 0):
+                with span("fit.validate"):
+                    val = validate(runner, state, *valid_data)
+                ctx["validation"] = val
+                logger.info("epoch %d validation sum: %.5f iou: %.5f "
+                            "iout: %.5f (threshold %.2f)", epoch_id,
+                            val["sum"], val["iou"], val["iout"],
+                            val["threshold"])
+            callbacks.on_epoch_end(ctx)
+            history.append({"epoch": epoch_id,
+                            "train_loss": ctx.get("train_loss"),
+                            **{f"val_{k}": v for k, v in
+                               (ctx.get("validation") or {}).items()}})
+            new_lr = callbacks.new_learning_rate(ctx)
+            if new_lr is not None:
+                state.with_learning_rate(new_lr)
+                ctx["learning_rate"] = new_lr
+            if callbacks.training_break(ctx):
+                logger.info("early stopping at epoch %d", epoch_id)
+                ctx["early_stopped"] = True
+                break
     callbacks.on_train_end(ctx)
     return state, history

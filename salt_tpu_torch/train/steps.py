@@ -53,6 +53,7 @@ from salt_tpu_torch.core.config import Config
 from salt_tpu_torch.core.device import resolve_device
 from salt_tpu_torch.core.experiment import load_flat_npz
 from salt_tpu_torch.core.logging import get_logger
+from salt_tpu_torch.core.tracing import span
 from salt_tpu_torch.data.pipeline import to_device
 from salt_tpu_torch.losses.api import get_loss_fn
 from salt_tpu_torch.models.blocks import DropoutDraws
@@ -216,15 +217,19 @@ class SegmentationRunner:
                depths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Forward in train mode, :meth:`train_loss`, backward, one Adam
         step; BatchNorm statistics move in the forward. Returns the
-        loss (a 0-d tensor on the device)."""
+        loss (a 0-d tensor on the device). Traced as ``fit.forward``
+        (model and loss), ``fit.backward`` and ``fit.optimizer``."""
         model = state.model
         model.train()
-        logits = model(x, generator,
-                       depth=self.depth_input(depths, x.shape[0]))
-        loss = self.train_loss(logits, y)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        with span("fit.forward"):
+            logits = model(x, generator,
+                           depth=self.depth_input(depths, x.shape[0]))
+            loss = self.train_loss(logits, y)
+        with span("fit.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("fit.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return loss.detach()
 
@@ -261,10 +266,11 @@ class SegmentationRunner:
                    depths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One training step on uint8 [B, 101, 101] images and masks (and
         their depths); the augmentation (and any dropout) draws from
-        ``generator``."""
+        ``generator``; the augmentation traced as ``fit.augment``."""
         b, h, w = images_u8.shape
-        params = draw_augment_params(generator, b, h, w)
-        x, y = self._train_inputs(images_u8, masks_u8, params)
+        with span("fit.augment"):
+            params = draw_augment_params(generator, b, h, w)
+            x, y = self._train_inputs(images_u8, masks_u8, params)
         return self.update(state, x, y, generator, depths)
 
     @torch.no_grad()
