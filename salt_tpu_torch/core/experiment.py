@@ -18,13 +18,19 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import hashlib
+import io
 import json
 import os
 import shutil
+import struct
 import tempfile
-from typing import Any, Dict, List, Optional
+import zipfile
+import zlib
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+from numpy.lib import format as npy_format
 
 from salt_tpu_torch.core.logging import get_logger
 
@@ -72,6 +78,49 @@ def _atomic_write_text(path: str, text: str) -> None:
 def load_flat_npz(path: str) -> Dict[str, np.ndarray]:
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def read_flat_npz(path: str) -> Tuple[Dict[str, np.ndarray], str]:
+    """:func:`load_flat_npz` and the file's SHA-256 hex digest (what
+    ``pipeline/quality.py::file_sha256`` gives), from one read of the
+    file. A stored (uncompressed) member's array is a read-only view of
+    the bytes read, once its CRC-32 matches; a compressed one is inflated
+    as ``np.load`` does. A damaged archive raises ``np.load``'s
+    ``zipfile.BadZipFile``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    digest = hashlib.sha256(data).hexdigest()
+    arrays = {}
+    with zipfile.ZipFile(io.BytesIO(data)) as zf:
+        for info in zf.infolist():
+            key = info.filename.removesuffix(".npy")
+            if info.compress_type != zipfile.ZIP_STORED:
+                with zf.open(info) as member:
+                    arrays[key] = npy_format.read_array(member)
+                continue
+            arrays[key] = _stored_npy(data, info)
+    return arrays, digest
+
+
+def _stored_npy(data: bytes, info: zipfile.ZipInfo) -> np.ndarray:
+    """The array of the stored ``.npy`` member ``info`` of the zip archive
+    ``data``, as a view of ``data``."""
+    at = info.header_offset
+    name_len, extra_len = struct.unpack("<HH", data[at + 26:at + 30])
+    start = at + 30 + name_len + extra_len
+    member = memoryview(data)[start:start + info.file_size]
+    if zlib.crc32(member) != info.CRC:
+        raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r}")
+    head = io.BytesIO(member[:1 << 16])
+    version = npy_format.read_magic(head)
+    read_header = (npy_format.read_array_header_1_0 if version == (1, 0)
+                   else npy_format.read_array_header_2_0)
+    shape, fortran_order, dtype = read_header(head)
+    if dtype.hasobject:
+        raise ValueError(f"{info.filename}: object arrays are not loaded")
+    count = int(np.prod(shape, dtype=np.int64))
+    return np.frombuffer(member, dtype, count, head.tell()).reshape(
+        shape, order="F" if fortran_order else "C")
 
 
 def checkpoint_path(experiment_dir: str, name: str = "network",

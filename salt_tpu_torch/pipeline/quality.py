@@ -83,14 +83,18 @@ def load_gate_artifacts(experiment_dir: str) -> List[Dict]:
 
 
 def write_serve_provenance(out_csv: str, ckpt_paths: List[str],
-                           quant_bits: int,
-                           checkpoint_arg: str = "") -> Optional[str]:
+                           quant_bits: int, checkpoint_arg: str = "",
+                           hashes: Optional[Dict[str, str]] = None
+                           ) -> Optional[str]:
     """Write the int8 provenance next to the submission: the checkpoints'
     hashes and the gate artifacts whose checkpoint hash matches one of
-    them. Returns its path, or None when quantization is off."""
+    them. Returns its path, or None when quantization is off. ``hashes``
+    maps each path to its :func:`file_sha256` where the caller has them
+    already (None: the files are read and hashed here)."""
     if not quant_bits:
         return None
-    hashes = {p: file_sha256(p) for p in ckpt_paths}
+    hashes = {p: file_sha256(p) if hashes is None else hashes[p]
+              for p in ckpt_paths}
     gates: List[Dict] = []
     # the artifacts live in the experiment dir; --checkpoint may name the
     # dir itself or a best.npz inside its checkpoints/ tree: walk up

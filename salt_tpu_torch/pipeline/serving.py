@@ -29,19 +29,24 @@ optional probability archive is stored float16.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import glob
 import itertools
 import json
 import os
+import threading
 import time
-from typing import Iterator, List, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Sequence, Tuple, Union
 
 import numpy as np
 import pandas as pd
 import torch
+from torch import nn
 
 from salt_tpu_torch.core.config import Config
 from salt_tpu_torch.core.device import resolve_device
+from salt_tpu_torch.core.experiment import read_flat_npz
 from salt_tpu_torch.core.logging import get_logger
 from salt_tpu_torch.core import tracing
 
@@ -191,6 +196,109 @@ class _ProbsWriter:
         self._zf.close()
 
 
+def _empty_copy(model: nn.Module) -> nn.Module:
+    """A copy of ``model`` whose state-dict tensors (every parameter and
+    persistent buffer, which a strict ``load_state_dict`` overwrites) are
+    new and uninitialised: one build serves every fold without its
+    initialisation, and nothing is copied that the checkpoint replaces."""
+    memo = {}
+    for t in model.state_dict(keep_vars=True).values():
+        empty = torch.empty_like(t)
+        memo[id(t)] = (nn.Parameter(empty, t.requires_grad)
+                       if isinstance(t, nn.Parameter) else empty)
+    return copy.deepcopy(model, memo)
+
+
+class _FoldModels:
+    """The served folds' models, in fold order, each placed on the device
+    the first time the fold loop asks for it (``models[k]``) and kept for
+    later chunks.
+
+    A worker thread, started here, prepares each checkpoint's host state
+    in fold order: one read of the file, its SHA-256 (:attr:`hashes`, for
+    the provenance) and the arrays parsed from the same bytes
+    (``core/experiment.py::read_flat_npz``), then
+    ``runner.restore_host`` into an :func:`_empty_copy` of one build. It
+    runs at most :attr:`AHEAD` folds ahead of the folds placed, so the
+    host holds at most that many unplaced folds, and while the card runs
+    fold k it restores fold k + 1 or k + 2. The device half,
+    ``runner.place``, runs on the caller's thread. A failed restore
+    raises its own exception at ``models[k]`` of its fold; :meth:`close`
+    stops the worker and waits for it."""
+
+    AHEAD = 2
+
+    def __init__(self, runner, ckpts: Sequence[str]):
+        self._runner = runner
+        self._ckpts = list(ckpts)
+        self._placed: List[nn.Module] = []
+        self._ready: Dict[int, object] = {}   # fold -> (model, sha) or error
+        self._closed = False
+        self._cond = threading.Condition()
+        self.hashes: Dict[str, str] = {}
+        self._worker = threading.Thread(target=self._work,
+                                        name="serve-restore", daemon=True)
+        self._worker.start()
+
+    def _work(self) -> None:
+        template = None
+        for k, path in enumerate(self._ckpts):
+            with self._cond:
+                while (not self._closed
+                       and k >= len(self._placed) + self.AHEAD):
+                    self._cond.wait()
+                if self._closed:
+                    return
+            try:
+                arrays, sha = read_flat_npz(path)
+                if template is None:
+                    template = self._runner.build()
+                model = self._runner.restore_host(arrays,
+                                                  _empty_copy(template))
+                out = (model, sha)
+            except BaseException as e:    # raised again at models[k]
+                out = e
+            with self._cond:
+                self._ready[k] = out
+                self._cond.notify_all()
+            if isinstance(out, BaseException):
+                return
+
+    def __len__(self) -> int:
+        return len(self._ckpts)
+
+    def __getitem__(self, k: int) -> nn.Module:
+        if k < len(self._placed):
+            return self._placed[k]
+        with tracing.span("serve.restore", fold=k):
+            with self._cond:
+                ready = k in self._ready
+                while k not in self._ready:
+                    self._cond.wait()
+                out = self._ready.pop(k)
+            if isinstance(out, BaseException):
+                raise out
+            model, self.hashes[self._ckpts[k]] = out
+            model = self._runner.place(model)
+            with self._cond:
+                self._placed.append(model)
+                self._cond.notify_all()
+        tracing.count("serve.restores_ready", int(ready))
+        return model
+
+    def __enter__(self) -> "_FoldModels":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        self._worker.join()
+
+
 def serve(config: Config, checkpoint: str, images_dir: str,
           out_csv: str = "submission.csv", probs_out: str = "",
           synthetic: int = 0, chunk_size: int = 8192,
@@ -211,15 +319,25 @@ def serve(config: Config, checkpoint: str, images_dir: str,
     ``serve.forward`` (a fold on a chunk), ``serve.download``,
     ``serve.submission`` and ``serve.provenance``, and ``serve.warmup``
     where a small dataset warms up; the counter ``serve.forwards`` counts
-    the forward batches of ``batches``."""
-    with tracing.span("serve") as root:
-        return _serve(root, config, checkpoint, images_dir, out_csv,
-                      probs_out, synthetic, chunk_size, synthetic_difficulty,
-                      user_set, device)
+    the forward batches of ``batches``.
+
+    Checkpoints restore in a pipeline: a worker thread, started once the
+    checkpoints are known, reads, hashes and loads each fold on the host
+    (:class:`_FoldModels`) while the images decode and the card runs the
+    folds before it; the fold loop places fold k on the device before its
+    first forward. So ``serve.restore`` (attribute ``fold``) spans the
+    loop's wait for fold k's host state plus its placement, and the
+    counter ``serve.restores_ready`` counts the folds whose host state
+    was finished when the loop reached them. The provenance takes the
+    hashes of the bytes the worker read."""
+    with tracing.span("serve") as root, contextlib.ExitStack() as cleanup:
+        return _serve(root, cleanup, config, checkpoint, images_dir,
+                      out_csv, probs_out, synthetic, chunk_size,
+                      synthetic_difficulty, user_set, device)
 
 
-def _serve(root, config, checkpoint, images_dir, out_csv, probs_out,
-           synthetic, chunk_size, synthetic_difficulty, user_set,
+def _serve(root, cleanup, config, checkpoint, images_dir, out_csv,
+           probs_out, synthetic, chunk_size, synthetic_difficulty, user_set,
            device) -> dict:
     from salt_tpu_torch.ops.rle import create_submission
     from salt_tpu_torch.train.steps import SegmentationRunner, pad_batch
@@ -233,6 +351,14 @@ def _serve(root, config, checkpoint, images_dir, out_csv, probs_out,
     if checkpoint:
         config = adopt_checkpoint_config(config, checkpoint, user_set)
     ckpts = resolve_checkpoints(checkpoint) if checkpoint else []
+    runner = SegmentationRunner(config, dev)
+    if ckpts:
+        # the worker restores on the host from here on; fold k is placed
+        # on the device as the fold loop reaches it
+        models = cleanup.enter_context(_FoldModels(runner, ckpts))
+    else:
+        # the JAX package serves its runner's seeded initial state
+        models = [runner.place(runner.init_state(config.execution.seed).model)]
     if synthetic:
         from salt_tpu_torch.data.bundle import synthetic_bundle
         bundle = synthetic_bundle(synthetic, seed=config.execution.seed,
@@ -246,15 +372,6 @@ def _serve(root, config, checkpoint, images_dir, out_csv, probs_out,
     logger.info("serving %d images, %d checkpoint(s), tta=%s, device=%s",
                 len(ids), len(ckpts), config.postpro.use_tta, dev)
 
-    runner = SegmentationRunner(config, dev)
-    if ckpts:
-        models = []
-        for c in ckpts:
-            with tracing.span("serve.restore"):
-                models.append(runner.restore(c))    # on the device, once
-    else:
-        # the JAX package serves its runner's seeded initial state
-        models = [runner.place(runner.init_state(config.execution.seed).model)]
     n_models = len(models)
     root.set(images=len(ids), folds=n_models)
     step = (runner.predict_tta_step if config.postpro.use_tta
@@ -292,7 +409,8 @@ def _serve(root, config, checkpoint, images_dir, out_csv, probs_out,
     def run_chunk(count: int, imgs: np.ndarray):
         imgs_d = prepare(imgs)
         acc = None
-        for fold, model in enumerate(models):
+        for fold in range(n_models):
+            model = models[fold]
             with tracing.span("serve.forward", fold=fold):
                 p = run_model(model, imgs_d)
                 acc = p if acc is None else acc + p
@@ -354,5 +472,6 @@ def _serve(root, config, checkpoint, images_dir, out_csv, probs_out,
         from salt_tpu_torch.pipeline.quality import write_serve_provenance
         with tracing.span("serve.provenance"):
             result["int8_provenance"] = write_serve_provenance(
-                out_csv, ckpts, config.model.quant_bits, checkpoint)
+                out_csv, ckpts, config.model.quant_bits, checkpoint,
+                hashes=models.hashes)
     return result

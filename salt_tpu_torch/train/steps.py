@@ -125,12 +125,23 @@ class SegmentationRunner:
     def restore(self, checkpoint: Union[str, Dict[str, np.ndarray]]
                 ) -> nn.Module:
         """A flat-npz checkpoint (either package's ``best.npz``, or its
-        arrays), moved to the device once."""
+        arrays), moved to the device once: :meth:`place` of
+        :meth:`restore_host`."""
+        return self.place(self.restore_host(checkpoint))
+
+    def restore_host(self, checkpoint: Union[str, Dict[str, np.ndarray]],
+                     model: Optional[nn.Module] = None) -> nn.Module:
+        """The host half of :meth:`restore`: the checkpoint read, parsed
+        and loaded into ``model``, fp32 on the CPU: a fresh :meth:`build`
+        unless given (an uninitialised copy of one serves as well, the
+        checkpoint overwriting every parameter and persistent buffer). It
+        touches no CUDA, so it may run on any thread (``serve`` runs it on
+        a worker)."""
         if isinstance(checkpoint, str):
             checkpoint = load_flat_npz(checkpoint)
-        model = self.build()
+        model = self.build() if model is None else model
         load_flax_flat(model, checkpoint)
-        return self.place(model)
+        return model
 
     @cached_property
     def loss_fn(self):
