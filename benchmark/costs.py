@@ -14,7 +14,8 @@ from typing import List
 
 import torch
 
-from benchmark.reference import quant, unet
+from benchmark import reference
+from benchmark.reference import quant
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_DENSE_FLOPS = 989e12
@@ -91,11 +92,11 @@ def int8_conv_s(site: quant.Site) -> float:
 
 def forward_sites(cfg: dict, batch: int, quant_bits: int,
                   pallas_conv: str) -> List[quant.Site]:
-    """Every conv call of one infer-form forward of the reference model
-    at ``batch`` images of 128x128, on the meta device."""
+    """Every conv call of one infer-form forward of the configuration's
+    reference model at ``batch`` images of 128x128, on the meta device."""
     sites: List[quant.Site] = []
     with torch.device("meta"):
-        model = unet.build(cfg)
+        model = reference.for_config(cfg).build(cfg)
         x = torch.empty(batch, 3, NET, NET)
     model(x, quant.conv_policy(quant_bits, pallas_conv, sites))
     return sites

@@ -1,5 +1,5 @@
 """Model FLOPs of a configuration: ``torch.utils.flop_counter`` over one
-forward of the benchmark's reference model at 128x128, on the meta
+forward of the configuration's reference model at 128x128, on the meta
 device (a multiply-add counts 2). Each configuration file keeps its
 count as ``forward_flops_per_image``; ``benchmark/tests`` holds every
 file's count to a fresh one.
@@ -14,12 +14,12 @@ import sys
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark.reference import unet
+from benchmark import reference
 
 
 def forward_flops_per_image(cfg: dict) -> int:
     with torch.device("meta"):
-        model = unet.build(cfg)
+        model = reference.for_config(cfg).build(cfg)
         x = torch.empty(1, 3, 128, 128)
     with FlopCounterMode(display=False) as counter:
         model(x)

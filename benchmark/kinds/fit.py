@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import inputs, trace, weights
+from benchmark import inputs, reference, trace, weights
 from benchmark.kinds.serve import port_config
 from benchmark.reference import train as ref_train
 from salt_tpu_torch.train.callbacks import Callback
@@ -95,15 +95,17 @@ class Recorder(Callback):
     """The check steps' callback: each step's loss, Adam's first moments
     after the first step (zeros where a step left none) and the
     parameters after the last, on the host; and, from a hook on the
-    model's head, the first step's logits."""
+    model's 1x1 head (``head``, the reference's ``HEAD``), the first
+    step's logits."""
 
-    def __init__(self, state, steps: int):
+    def __init__(self, state, steps: int, head: str):
         self.steps = steps
         self.losses, self.first_moment, self.params = [], None, None
         self.first_logits = None
         self._names = {id(p): n for n, p in state.model.named_parameters()}
         # the first forward of the first step ends in the 1x1 head
-        self._hook = state.model.head.register_forward_hook(self._logits)
+        self._hook = state.model.get_submodule(head).register_forward_hook(
+            self._logits)
 
     def _logits(self, module, args, out):
         self.first_logits = out.detach().float().cpu()
@@ -173,7 +175,7 @@ class Prepared:
         load_flax_flat(model, arrays)
         self.state = self.runner.train_state(model)
         self.seed = seed % (1 << 31)
-        self.rec = Recorder(self.state, k)
+        self.rec = Recorder(self.state, k, reference.for_config(cfg).HEAD)
         fit(self.runner, self.data(self.check_rows), self.data(warm),
             callbacks=CallbackList([self.rec]), state=self.state,
             epochs=1, seed=self.seed)

@@ -35,14 +35,17 @@ PIXELS = inputs.SIZE * inputs.SIZE
 
 
 def port_config(cfg: dict, traffic: dict):
-    """The program's ``Config`` of this configuration and traffic."""
+    """The program's ``Config`` of this configuration and traffic;
+    ``use_hypercolumn`` (else on) and ``pool0`` (else the program's
+    default) from the configuration where it gives them."""
     from salt_tpu_torch.core.config import default_config
     c = default_config()
     m = c.model
     m.architecture = cfg["architecture"]
     m.encoder_depth = cfg["encoder_depth"]
     m.num_classes = cfg["num_classes"]
-    m.use_hypercolumn = True
+    m.use_hypercolumn = cfg.get("use_hypercolumn", True)
+    m.pool0 = cfg.get("pool0", m.pool0)
     m.pallas_conv = cfg["pallas_conv"]
     m.quant_bits = traffic["quant_bits"]
     c.training.dtype = cfg["dtype"]

@@ -21,6 +21,15 @@ SE gates and not the head), with ``F.conv2d``'s signature. A conv over
 a concat is the sum of each branch's conv with its slice of the weight,
 as the served infer form computes it (and, in exact arithmetic, the conv
 of the concat).
+
+Seeding conventions (``seed_conventions``, after the generic draw of
+``benchmark/weights.py``): the hypercolumn conv's weight on the three
+finest branches (dec1..dec3) is scaled by ``FINE_BRANCH_SCALE``, so the
+masks follow the coarse branches and come out in blobs (about 45 runs a
+mask) rather than in single pixels; the last BatchNorm of each residual
+branch has its scale times ``residual_scale``. ``Encoder`` and ``Block``
+(with :func:`scale_residual_branches`) serve any family on these
+encoders.
 """
 from __future__ import annotations
 
@@ -33,6 +42,12 @@ from torch import nn
 Conv = Callable[..., torch.Tensor]
 
 RESNET_LAYERS = {34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
+#: the 1x1 head's module name
+HEAD = "head"
+#: leaves with no fan-in: none
+FANLESS: dict = {}
+#: scale of the hypercolumn conv's weight on the dec1..dec3 branches
+FINE_BRANCH_SCALE = 0.1
 
 
 def bn(c: int) -> nn.BatchNorm2d:
@@ -264,3 +279,21 @@ def build_empty(cfg: dict, device) -> UNet:
     with torch.device("meta"):
         model = build(cfg)
     return model.to_empty(device=device)
+
+
+def scale_residual_branches(model: nn.Module, residual_scale: float) -> None:
+    """The last BatchNorm's scale of every residual branch (every
+    :class:`Block` in ``model``) times ``residual_scale``."""
+    for block in model.modules():
+        if isinstance(block, Block):
+            last = block.bn3 if block.bottleneck else block.bn2
+            last.BatchNorm_0.weight *= residual_scale
+
+
+@torch.no_grad()
+def seed_conventions(model: UNet, residual_scale: float) -> None:
+    """The U-Net's scaling of its seeded weights (the module's
+    docstring)."""
+    w = model.final_conv.Conv_0.weight
+    w[:, :3 * w.shape[1] // 5] *= FINE_BRANCH_SCALE
+    scale_residual_branches(model, residual_scale)

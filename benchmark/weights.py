@@ -1,4 +1,4 @@
-"""Seeded weights of the benchmark's reference model, and the flat
+"""Seeded weights of a configuration's reference model, and the flat
 checkpoint layout the served program restores.
 
 :func:`make_folds` fills one reference model per fold on the device from
@@ -7,19 +7,19 @@ folds and one of each fold's own, mixed so that the folds agree as
 trained folds of one ensemble do, then scaled leaf by leaf (conv and
 dense weights by ``1 / sqrt(fan_in)``, biases by 0.05, BatchNorm scale
 ``1 + 0.1 n`` and shift ``0.1 n``, its mean ``0.1 n`` and variance
-``exp(0.1 n)``). The hypercolumn conv's weight on the three finest
-branches (dec1..dec3) is scaled by 0.1, so the masks follow the coarse
-branches and come out in blobs (about 45 runs a mask) rather than in
-single pixels. Statistics calibrated to each layer's batch would make
-a random network chaotic (bf16 rounding then moves a probability by
-0.08); these keep it steady under rounding, as a trained network is.
-Last, each fold's 1x1 head is scaled so that its logits have mean 0 and
+``exp(0.1 n)``, a leaf with no fan-in by the reference's ``FANLESS``),
+then by the reference module's ``seed_conventions``. Statistics
+calibrated to each layer's batch would make a random network chaotic
+(bf16 rounding then moves a probability by 0.08); these keep it steady
+under rounding, as a trained network is. Last, each fold's 1x1 head
+(the reference's ``HEAD``) is scaled so that its logits have mean 0 and
 standard deviation 1 over calibration images.
 
 :func:`flat_arrays` writes a model's state as the flat
 ``params/...`` / ``batch_stats/...`` arrays of ``best.npz``: a conv
 kernel HWIO (OIHW transposed), a module named ``Dense*`` [in, out] (a
-1x1 conv there too), BatchNorm ``scale``, ``bias``, ``mean``, ``var``.
+1x1 conv there too), BatchNorm ``scale``, ``bias``, ``mean``, ``var``,
+and any other module's parameters under their own names.
 """
 from __future__ import annotations
 
@@ -30,13 +30,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from benchmark import reference
 from benchmark.reference import serve as ref_serve
-from benchmark.reference import unet
 
 #: how far a fold's weights depart from the folds' shared draw
 FOLD_SPREAD = 0.5
-#: scale of the hypercolumn conv's weight on the dec1..dec3 branches
-FINE_BRANCH_SCALE = 0.1
 
 
 def _fan_in(m: nn.Module) -> int:
@@ -56,10 +54,12 @@ def make_folds(cfg: dict, folds: int, seed: int, calib_u8: torch.Tensor,
     standard deviation 1 over the calibration images ``calib_u8``
     [B, 101, 101]. ``residual_scale`` multiplies the scale of the last
     BatchNorm of every residual branch (a training run's start: see
-    ``kinds/fit.py``)."""
+    ``kinds/fit.py``). The model is the configuration's reference
+    (:func:`reference.for_config`)."""
+    ref = reference.for_config(cfg)
     device = calib_u8.device
     with torch.device("meta"):
-        template = unet.build(cfg)
+        template = ref.build(cfg)
     total = sum(t.numel() for t in _leaves(template))
     shared = torch.randn(total, generator=_generator(device, seed, 0),
                          device=device)
@@ -68,7 +68,7 @@ def make_folds(cfg: dict, folds: int, seed: int, calib_u8: torch.Tensor,
         flat = shared + FOLD_SPREAD * torch.randn(
             total, generator=_generator(device, seed, k + 1), device=device)
         flat /= (1 + FOLD_SPREAD ** 2) ** 0.5
-        model = unet.build_empty(cfg, device)
+        model = ref.build_empty(cfg, device)
         off = 0
         for m in model.modules():
             for leaf, t in _own_leaves(m):
@@ -80,23 +80,22 @@ def make_folds(cfg: dict, folds: int, seed: int, calib_u8: torch.Tensor,
                          "running_var": torch.exp(0.1 * v)}[leaf]
                 elif leaf == "bias":
                     v = 0.05 * v
-                else:
+                elif leaf == "weight":
                     v = v / _fan_in(m) ** 0.5
+                else:
+                    mean, std = ref.FANLESS[leaf]
+                    v = mean + std * v
                 t.copy_(v)
             if isinstance(m, nn.BatchNorm2d):
                 m.num_batches_tracked.zero_()
-        w = model.final_conv.Conv_0.weight
-        w[:, :3 * w.shape[1] // 5] *= FINE_BRANCH_SCALE
-        for block in model.modules():
-            if isinstance(block, unet.Block):
-                last = block.bn3 if block.bottleneck else block.bn2
-                last.BatchNorm_0.weight *= residual_scale
+        ref.seed_conventions(model, residual_scale)
         model.eval()
         with exact_fp32():
             logits = model(ref_serve.preprocess(calib_u8))
         mean, std = logits.mean((0, 2, 3)), logits.std((0, 2, 3))
-        model.head.weight /= std[:, None, None, None]
-        model.head.bias.sub_(mean).div_(std)
+        head = model.get_submodule(ref.HEAD)
+        head.weight /= std[:, None, None, None]
+        head.bias.sub_(mean).div_(std)
         models.append(model)
     return models
 
@@ -155,6 +154,9 @@ def flat_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
             out[f"params/{scope}/kernel"] = arr(kernel)
             if m.bias is not None:
                 out[f"params/{scope}/bias"] = arr(m.bias)
+        else:
+            for leaf, p in m.named_parameters(recurse=False):
+                out[f"params/{scope}/{leaf}"] = arr(p)
     return out
 
 
